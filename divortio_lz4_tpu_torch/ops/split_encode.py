@@ -1,0 +1,63 @@
+"""Chain-direct encode: device candidate chains + host select/serialize.
+
+Port of ``divortio_lz4_tpu/ops/split_encode.py`` (``encode_blocks_chain``,
+``chain_select_serialize`` u16 branch). The device builds one u16 match
+distance per payload position (``build_dist_chains``); the JAX package's
+native host tier greedy-selects, extends and serializes each block from
+its chain. The native serializer is required: unlike the JAX module there
+is no pure-Python fallback.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from divortio_lz4_tpu.constants import block_bound
+from divortio_lz4_tpu.native import chain_serialize16_native
+
+from .hybrid_encode import build_dist_chains
+
+# Rows per chain-builder call. Each call holds ~20 int64 [rows, N]
+# temporaries alive at once: at 128 rows of 64 KB that is 64 MB each
+# (128 MB with a 64 KB history prefix), ~1.3-2.6 GB at peak, whatever the
+# frame's size.
+CHAIN_CHUNK_ROWS = 128
+
+
+def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
+                        hist_len: int = 0, hist_start=0, *,
+                        device) -> torch.Tensor:
+    """Build candidate chains for a batch of blocks on *device*.
+
+    work: u8[nb, hist_len + block_size] ([history | payload] rows, host);
+    lens: i32[nb] payload sizes. Returns uint16[nb, block_size] on
+    *device* (match distance per payload position, 0 = none; the hashed
+    production layout), queued asynchronously; fetch once and feed rows to
+    chain_select_serialize."""
+    nb, nw = work.shape
+    if nw != hist_len + block_size or block_size % 1024:
+        raise ValueError(f"work rows of {nw} bytes do not hold hist_len="
+                         f"{hist_len} + block_size={block_size} "
+                         "(block_size % 1024 == 0)")
+    device = torch.device(device)
+    chains = torch.empty((nb, block_size), dtype=torch.uint16, device=device)
+    for i in range(0, nb, CHAIN_CHUNK_ROWS):
+        rows = slice(i, min(i + CHAIN_CHUNK_ROWS, nb))
+        w = torch.from_numpy(np.ascontiguousarray(work[rows])).to(device)
+        ln = torch.from_numpy(np.asarray(lens[rows], np.int64)).to(device)
+        chains[rows] = build_dist_chains(w, ln, hist_len, hist_start)
+    return chains
+
+
+def chain_select_serialize(work: np.ndarray, hist_len: int, src_len: int,
+                           chain: np.ndarray) -> np.ndarray:
+    """Greedy-select/extend/serialize one block from its u16 chain.
+
+    *work* = [history | payload] bytes with >= 8 readable bytes after
+    hist_len + src_len. Returns the block's wire bytes."""
+    out = np.empty(block_bound(src_len) + 16, np.uint8)
+    work = np.ascontiguousarray(work, dtype=np.uint8)
+    dist16 = np.ascontiguousarray(chain, dtype=np.uint16)
+    n = chain_serialize16_native(work, hist_len, src_len, dist16, out)
+    return out[:n]

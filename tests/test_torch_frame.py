@@ -1,0 +1,220 @@
+"""The torch port's frame codec held against the JAX package on the CPU.
+
+Frames from divortio_lz4_tpu_torch.compress_frame must be byte-identical to
+the JAX device_compress_frame(engine="split"); decompress_frame must equal
+the JAX device_decompress_frame(engine="split") and the plaintext, on those
+frames and on the golden spec frames, and raise the same errors on
+malformed frames. Tolerance: exact everywhere.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import divortio_lz4_tpu as lz4
+import divortio_lz4_tpu_torch as pt
+import test_golden as golden
+from _torch_port import cuda, mixed_payload  # noqa: F401  (cuda: fixture)
+from divortio_lz4_tpu.config import FrameConfig
+from divortio_lz4_tpu.parallel.device import (device_compress_frame,
+                                              device_decompress_frame)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = FrameConfig(block_size=65536, block_independence=True)
+VARIANTS = {
+    "content_checksum": (CFG.with_(content_checksum=True), False),
+    "block_checksums": (CFG.with_(block_checksums=True), False),
+    "no_content_size": (CFG.with_(content_size=False), False),
+    "dictionary": (CFG.with_(content_checksum=True), True),
+}
+
+
+def _data_and_dict(seed=7):
+    data = mixed_payload(150_000, seed)
+    return data, np.array(data[1000:10000])
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_frame_roundtrip_matches_jax(variant):
+    cfg, use_dict = VARIANTS[variant]
+    data, d = _data_and_dict()
+    d = d if use_dict else None
+    want = np.asarray(device_compress_frame(data, cfg, dictionary=d,
+                                            engine="split"))
+    got = pt.compress_frame(data, cfg, dictionary=d, device="cpu")
+    assert got.tobytes() == want.tobytes()
+    ref = np.asarray(device_decompress_frame(want, dictionary=d,
+                                             engine="split"))
+    out = pt.decompress_frame(got, dictionary=d, device="cpu")
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, data)
+    # the host C++ codec decodes the port's frame too
+    np.testing.assert_array_equal(
+        np.asarray(lz4.decompress(got, dictionary=d)), data)
+
+
+@pytest.mark.parametrize("payload", [b"", b"Hello World", b"ab" * 40000],
+                         ids=["empty", "hello", "two_blocks_rle"])
+def test_small_frames_match_jax(payload):
+    cfg = CFG.with_(content_size=False)
+    want = np.asarray(device_compress_frame(payload, cfg, engine="split"))
+    got = pt.compress_frame(payload, cfg, device="cpu")
+    assert got.tobytes() == want.tobytes()
+    assert pt.decompress_frame(got, device="cpu").tobytes() == payload
+    if payload == b"Hello World":
+        assert got.tobytes() == bytes.fromhex(golden.GOLDEN_HELLO)
+
+
+GOLDEN_INDEPENDENT = {
+    "hello": (golden.GOLDEN_HELLO, b"Hello World"),
+    "empty_4mb": (golden.GOLDEN_EMPTY_4MB, b""),
+    "hello_ck": (golden.GOLDEN_HELLO_CK, b"Hello World"),
+    "multiblock": (golden.GOLDEN_MULTIBLOCK, b"A" * 131072),
+    "block_ck": (golden.GOLDEN_BLOCK_CK, b"Hello World"),
+    "mixed_stored": (golden.GOLDEN_MIXED_STORED,
+                     b"A" * 65536 + b"incompressible tail bytes!!"),
+    "content_size": (golden.GOLDEN_CONTENT_SIZE, b"Hello World"),
+}
+
+
+@pytest.mark.parametrize("name", list(GOLDEN_INDEPENDENT))
+def test_golden_frames_decode(name):
+    hexs, plain = GOLDEN_INDEPENDENT[name]
+    frame = golden.from_hex(hexs)
+    out = pt.decompress_frame(frame, device="cpu")
+    assert out.tobytes() == plain
+    ref = np.asarray(device_decompress_frame(frame, engine="split"))
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("name", ["linked_xblock", "dict_linked"])
+def test_golden_linked_frames_not_ported(name):
+    hexs, dic = {"linked_xblock": (golden.GOLDEN_LINKED_XBLOCK, None),
+                 "dict_linked": (golden.GOLDEN_DICT,
+                                 golden.GOLDEN_DICT_DICTIONARY)}[name]
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        pt.decompress_frame(golden.from_hex(hexs), dictionary=dic,
+                            device="cpu")
+
+
+def _corrupt(kind):
+    """(frame, dictionary) for one malformed-frame case."""
+    data, d = _data_and_dict(seed=8)
+    data = data[:70_000]
+    if kind in ("no_dictionary", "wrong_dictionary"):
+        frame = np.array(lz4.compress(data, dictionary=d, config=CFG))
+        return frame, (None if kind == "no_dictionary"
+                       else np.frombuffer(b"not-the-dict" * 30, np.uint8))
+    cfg = CFG.with_(content_checksum=True, block_checksums=True)
+    frame = np.array(lz4.compress(data, config=cfg))
+    if kind == "bad_magic":
+        frame[0] ^= 0x01
+    elif kind == "header_checksum":
+        frame[14] ^= 0xFF          # 4 magic + FLG + BD + 8 size -> HC
+    elif kind == "content_checksum":
+        frame[-1] ^= 0xFF
+    elif kind == "block_checksum":
+        frame[20] ^= 0x01          # first block's data
+    elif kind == "truncated":
+        frame = frame[: len(frame) - 9]
+    elif kind == "no_endmark":
+        frame = frame[: len(frame) - 8]
+    return frame, None
+
+
+@pytest.mark.parametrize("kind", [
+    "bad_magic", "header_checksum", "content_checksum", "block_checksum",
+    "no_dictionary", "wrong_dictionary", "truncated", "no_endmark"])
+def test_errors_match_jax(kind):
+    frame, dic = _corrupt(kind)
+    with pytest.raises(ValueError) as ref:
+        device_decompress_frame(frame, dictionary=dic, engine="split")
+    with pytest.raises(ValueError) as got:
+        pt.decompress_frame(frame, dictionary=dic, device="cpu")
+    assert str(got.value) == str(ref.value)
+    assert str(got.value).startswith("LZ4: ")
+    with pytest.raises(ValueError) as many:
+        pt.decompress_frames([frame], dictionary=dic, device="cpu")
+    assert str(many.value) == str(ref.value)
+
+
+def test_frames_in_flight_keep_order():
+    data, _ = _data_and_dict(seed=9)
+    datas = [data[:100_000], b"", data[100_000:], b"xyz" * 30000]
+    cfg = CFG.with_(content_checksum=True)
+    frames = pt.compress_frames(datas, cfg, device="cpu")
+    assert len(frames) == len(datas)
+    for f, x in zip(frames, datas):
+        assert f.tobytes() == pt.compress_frame(x, cfg,
+                                                device="cpu").tobytes()
+    # frames of other configurations decode in the same batch
+    frames.append(pt.compress_frame(data, cfg.with_(block_checksums=True),
+                                    device="cpu"))
+    frames.append(np.asarray(lz4.compress(data[:5000], config=CFG)))
+    outs = pt.decompress_frames(frames, device="cpu")
+    want = [bytes(x) for x in datas] + [data.tobytes(),
+                                        data[:5000].tobytes()]
+    assert [o.tobytes() for o in outs] == want
+
+
+def test_unsupported_configurations_raise():
+    data = np.zeros(1000, np.uint8)
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        pt.compress_frame(data, FrameConfig(block_size=65536), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        pt.compress_frame(data, FrameConfig(block_size=262144,
+                                            block_independence=True),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="engine='xla'"):
+        pt.compress_frame(data, CFG, engine="xla", device="cpu")
+    linked = np.asarray(lz4.compress(data, config=FrameConfig(
+        block_size=65536)))
+    with pytest.raises(NotImplementedError, match="linked"):
+        pt.decompress_frame(linked, device="cpu")
+    big = np.asarray(lz4.compress(data, config=FrameConfig(
+        block_size=262144, block_independence=True)))
+    with pytest.raises(NotImplementedError, match="262144-byte blocks"):
+        pt.decompress_frame(big, device="cpu")
+
+
+def test_device_is_explicit():
+    with pytest.raises(TypeError, match="device is required"):
+        pt.compress_frame(b"abc", CFG, device=None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pt.decompress_frame(b"abc", device="meta")
+
+
+def test_cuda_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU error cannot show")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pt.compress_frame(b"abc", CFG, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pt.decompress_frames([], device="cuda")
+
+
+def test_import_leaves_jax_out():
+    """The port never imports jax (checked in a fresh interpreter: this
+    test process has jax loaded by the suite's conftest)."""
+    code = ("import sys, divortio_lz4_tpu_torch; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == "
+            "'jax'); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=300)
+
+
+@pytest.mark.cuda
+def test_cuda_frames_match_cpu(cuda):
+    data, d = _data_and_dict()
+    for cfg, use_dict in VARIANTS.values():
+        dic = d if use_dict else None
+        want = pt.compress_frame(data, cfg, dictionary=dic, device="cpu")
+        got = pt.compress_frame(data, cfg, dictionary=dic, device=cuda)
+        assert got.tobytes() == want.tobytes()
+        out = pt.decompress_frame(got, dictionary=dic, device=cuda)
+        np.testing.assert_array_equal(out, data)
