@@ -1,0 +1,223 @@
+#!/usr/bin/env python3
+"""Layer breakdown of one default-config frame on one GPU.
+
+    python3 chip_breakdown.py [--mib 64] [--seed N]
+
+Encodes bench.build_corpus(MiB, seed) as one FrameConfig() frame (4 MB
+linked blocks) with a content checksum, then decodes it, and times each
+layer of the port's path on its own: host clock around synchronised
+calls, median of 3 (the chain kernel by CUDA events). The layers are
+those of the default frame's route through parallel/device.py:
+
+- encode: segment rows, H2D of the rows, chain builder (H2D included),
+  D2H of the chains, serialize with splice meta, splice, frame assembly
+  with the content xxh32;
+- decode: block index, piece scan, scan + parse, chain arrays, H2D,
+  chain_decode kernel, D2H of the output, content xxh32.
+
+Then one compress_frame and one decompress_frame run under torch.profiler.
+The device busy share of a call is the union of its device activity
+intervals (kernels, memcpy, memset; user annotations left out) over the
+call's host wall time, so an interval the profiler reports under two
+names counts once. The device ops' summed durations are printed beside it.
+
+Prints one line per layer and per device op, and last a JSON line with
+every number. Needs an NVIDIA GPU, nvcc and g++; never imports jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+
+MIB = 1 << 20
+
+
+def _median_ms(torch, fn, reps=3):
+    """(median ms of fn() over *reps* synchronised calls, last result)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _busy(torch, fn):
+    """Run fn() once under torch.profiler. Returns (wall ms, union of the
+    device intervals in ms, summed device op ms, {op name: ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, per_op = [], defaultdict(float)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        per_op[e.name] += (b - a) / 1e3
+    union, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    return wall, union / 1e3, sum(per_op.values()), dict(per_op)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mib", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0x51E51A)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_breakdown: torch.cuda.is_available() is False; this "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60)
+    card = card.stdout.strip().splitlines()[0]
+    print(card)
+
+    import divortio_lz4_tpu_torch as pt
+    from bench import build_corpus
+    from divortio_lz4_tpu.config import FrameConfig
+    from divortio_lz4_tpu.constants import WINDOW_SIZE
+    from divortio_lz4_tpu.utils.pool import host_pool
+    from divortio_lz4_tpu.xxh import xxhash32
+    from divortio_lz4_tpu_torch.ops.split_encode import encode_blocks_chain
+    from divortio_lz4_tpu_torch.ops.wave_decode import (
+        ChainBatch, _block_out_len, build_chain_arrays, decode_chains,
+        plan_blocks)
+    from divortio_lz4_tpu_torch.parallel import bigblock as bb
+    from divortio_lz4_tpu_torch.parallel.device import (
+        _assemble_frame_host, parse_block_index)
+
+    dev = torch.device("cuda:0")
+    raw = build_corpus(args.mib * MIB, args.seed)
+    n = len(raw)
+    cfg = FrameConfig(content_checksum=True)
+    bs = cfg.resolved_block_size
+    frame = pt.compress_frame(raw, cfg, device=dev)          # warm-up
+    if pt.decompress_frame(frame, device=dev).tobytes() != raw.tobytes():
+        raise AssertionError("round trip is not exact")
+    res = {"card": card, "mib": args.mib, "encode": {}, "decode": {}}
+
+    def layer(side, name, fn, reps=3):
+        ms, out = _median_ms(torch, fn, reps)
+        res[side][name] = ms
+        print(f"{side}: {name}: {ms:.1f} ms")
+        return out
+
+    # -- encode ----------------------------------------------------------
+    res["encode"]["compress_frame"] = _median_ms(
+        torch, lambda: pt.compress_frame(raw, cfg, device=dev))[0]
+    work, lens, hist_start, seg_rows = layer(
+        "encode", "segment rows", lambda: bb._segment_rows(raw, bs, None,
+                                                           True))
+    layer("encode", "H2D segment rows",
+          lambda: torch.from_numpy(work).to(dev))
+    chains = layer("encode", "chain builder incl. H2D",
+                   lambda: encode_blocks_chain(work, lens, bb.SEG,
+                                               WINDOW_SIZE, hist_start,
+                                               device=dev))
+    chains_np = layer("encode", "D2H chains", lambda: chains.cpu().numpy())
+    outs, out_lens, metas = layer(
+        "encode", "serialize with meta",
+        lambda: bb._encode_segments(work, lens, chains_np))
+
+    def splice():
+        return [bb._splice_block(
+            raw, b * bs, min(b * bs + bs, n),
+            [outs[r][: int(out_lens[r])] for r in rl],
+            [metas[r] for r in rl], [lens[r] for r in rl], src_floor=0)
+            for b, rl in enumerate(seg_rows)]
+    comps = layer("encode", "splice", splice)
+    blens = [min(bs, n - b * bs) for b in range(len(comps))]
+    got = layer("encode", "assemble + content xxh32",
+                lambda: _assemble_frame_host(raw, comps, blens, len(comps),
+                                             bs, cfg, None))
+    if got.tobytes() != np.asarray(frame).tobytes():
+        raise AssertionError("the layers' frame differs from compress_frame")
+
+    # -- decode ----------------------------------------------------------
+    res["decode"]["decompress_frame"] = _median_ms(
+        torch, lambda: pt.decompress_frame(frame, device=dev))[0]
+    header, blocks, _ = layer("decode", "parse_block_index",
+                              lambda: parse_block_index(frame))
+    bm = header["block_max"]
+    layer("decode", "scan (host pool)", lambda: list(host_pool().map(
+        lambda b: _block_out_len(frame, *b, bm), blocks)))
+    out_lens_d, recs_l = layer("decode", "scan + parse (host pool)",
+                               lambda: plan_blocks(frame, blocks, header,
+                                                   None))
+    arrays = layer("decode", "build chain arrays",
+                   lambda: build_chain_arrays(frame, blocks, False,
+                                              out_lens_d, recs_l))
+    tensors = layer("decode", "H2D wire + records", lambda: [
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays])
+    batch = ChainBatch(*tensors, None, int(arrays[4][-1]))
+    res["decode"]["records"] = int(arrays[2].shape[0])
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    kms = []
+    for _ in range(3):
+        start.record()
+        out = decode_chains(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        kms.append(start.elapsed_time(stop))
+    res["decode"]["chain_decode kernel (CUDA events)"] = statistics.median(
+        kms)
+    print(f"decode: chain_decode kernel (CUDA events): "
+          f"{statistics.median(kms):.1f} ms, {arrays[2].shape[0]} records")
+    out_np = layer("decode", "D2H output", lambda: out.cpu().numpy())
+    layer("decode", "content xxh32", lambda: xxhash32(out_np, 0))
+    if out_np.tobytes() != raw.tobytes():
+        raise AssertionError("the layers' output differs from the corpus")
+
+    # -- device busy share -----------------------------------------------
+    for side, fn in (("encode", lambda: pt.compress_frame(raw, cfg,
+                                                          device=dev)),
+                     ("decode", lambda: pt.decompress_frame(frame,
+                                                            device=dev))):
+        wall, union, summed, per_op = _busy(torch, fn)
+        top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
+        share = union / wall if per_op else None    # no device events
+        res[side]["profiled"] = {
+            "wall_ms": wall, "device_union_ms": union,
+            "device_summed_ms": summed, "busy_share": share,
+            "top_ops_ms": top}
+        print(f"{side}: profiled call {wall:.1f} ms wall, device busy "
+              f"{union:.1f} ms (union of intervals; summed {summed:.1f} ms), "
+              f"busy share "
+              f"{'not measured' if share is None else f'{share:.4f}'}")
+        for name, ms in top:
+            print(f"{side}:   {ms:9.1f} ms  {name[:90]}")
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

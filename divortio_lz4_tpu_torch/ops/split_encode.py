@@ -1,11 +1,12 @@
 """Chain-direct encode: device candidate chains + host select/serialize.
 
 Port of ``divortio_lz4_tpu/ops/split_encode.py`` (``encode_blocks_chain``,
-``chain_select_serialize`` u16 branch). The device builds one u16 match
-distance per payload position (``build_dist_chains``); the JAX package's
-native host tier greedy-selects, extends and serializes each block from
-its chain. The native serializer is required: unlike the JAX module there
-is no pure-Python fallback.
+the u16 branch of ``chain_select_serialize``, and
+``chain_select_serialize_meta``). The device builds one u16 match distance
+per payload position (``build_dist_chains``); the JAX package's native host
+tier greedy-selects, extends and serializes each block from its chain. The
+native serializer is required: unlike the JAX module there is no
+pure-Python fallback.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from divortio_lz4_tpu.constants import block_bound
-from divortio_lz4_tpu.native import chain_serialize16_native
+from divortio_lz4_tpu.native import (chain_serialize16_meta_native,
+                                     chain_serialize16_native)
 
 from .hybrid_encode import build_dist_chains
 
@@ -31,7 +33,8 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
     """Build candidate chains for a batch of blocks on *device*.
 
     work: u8[nb, hist_len + block_size] ([history | payload] rows, host);
-    lens: i32[nb] payload sizes. Returns uint16[nb, block_size] on
+    lens: i32[nb] payload sizes; hist_start: the first valid history
+    index, an int or an int[nb] per row. Returns uint16[nb, block_size] on
     *device* (match distance per payload position, 0 = none; the hashed
     production layout), queued asynchronously; fetch once and feed rows to
     chain_select_serialize."""
@@ -41,12 +44,14 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
                          f"{hist_len} + block_size={block_size} "
                          "(block_size % 1024 == 0)")
     device = torch.device(device)
+    hs = np.broadcast_to(np.asarray(hist_start, np.int64), (nb,)).copy()
     chains = torch.empty((nb, block_size), dtype=torch.uint16, device=device)
     for i in range(0, nb, CHAIN_CHUNK_ROWS):
         rows = slice(i, min(i + CHAIN_CHUNK_ROWS, nb))
         w = torch.from_numpy(np.ascontiguousarray(work[rows])).to(device)
         ln = torch.from_numpy(np.asarray(lens[rows], np.int64)).to(device)
-        chains[rows] = build_dist_chains(w, ln, hist_len, hist_start)
+        h = torch.from_numpy(np.ascontiguousarray(hs[rows])).to(device)
+        chains[rows] = build_dist_chains(w, ln, hist_len, h)
     return chains
 
 
@@ -61,3 +66,17 @@ def chain_select_serialize(work: np.ndarray, hist_len: int, src_len: int,
     dist16 = np.ascontiguousarray(chain, dtype=np.uint16)
     n = chain_serialize16_native(work, hist_len, src_len, dist16, out)
     return out[:n]
+
+
+def chain_select_serialize_meta(work: np.ndarray, hist_len: int,
+                                src_len: int, chain: np.ndarray):
+    """chain_select_serialize plus the big-block splicer's meta lanes
+    (trailing-token position, trailing literal count, last-match stream
+    offset or -1, last-match output anchor or -1). Returns (stream u8,
+    meta i64[4])."""
+    out = np.empty(block_bound(src_len) + 16, np.uint8)
+    work = np.ascontiguousarray(work, dtype=np.uint8)
+    dist16 = np.ascontiguousarray(chain, dtype=np.uint16)
+    n, meta = chain_serialize16_meta_native(work, hist_len, src_len, dist16,
+                                            out)
+    return out[:n], meta

@@ -1,29 +1,37 @@
-"""Frame codec on a torch device: the split engine on independent frames.
+"""Frame codec on a torch device: the split engine, every block size and
+both block modes.
 
 Port of the ``engine="split"`` path of ``divortio_lz4_tpu/parallel/
-device.py`` for frames of independent blocks of up to 64 KB.
+device.py`` (``device_compress_frame(s)``, ``device_decompress_frame(s)``).
 
-- Encode: ``_compress_independent_split`` queues the chain builder on the
-  device (``ops/split_encode.encode_blocks_chain``); ``_split_encode_fetch``
-  fetches the chains, serializes every block on the host pool with the
-  native serializer, and ``_assemble_frame_host`` builds the frame.
-- Decode: ``_decode_independent_split`` parses every block's records on
-  the host (``ops/split_decode``) and queues the compact decode kernel
-  (``ops/compact_decode``); ``_split_decode_fetch`` joins the blocks.
+- Encode, blocks of up to 64 KB: ``_compress_independent_split`` or
+  ``_compress_linked_split`` queues the chain builder on the device
+  (``ops/split_encode.encode_blocks_chain``); ``_split_encode_fetch``
+  serializes every block on the host pool and ``_assemble_frame_host``
+  builds the frame.
+- Encode, larger blocks (either mode): 64 KB segments with 64 KB history
+  rows through the same chain builder, then a host splice per block
+  (``parallel/bigblock.py``).
+- Decode routes as the JAX package does:
+  independent <= 64 KB blocks -> compact kernel (``ops/compact_decode``);
+  independent 256 KB blocks -> padded wire kernel (``ops/wire_decode``);
+  independent 1-4 MB blocks and every linked frame -> chain kernel
+  (``ops/wave_decode``).
 
 ``compress_frames`` / ``decompress_frames`` queue every frame's device
-work first, fetch all of it with one device-to-host copy, then finish each
-frame on the host. The single-frame entry points are the one-frame case.
+work first, whatever its configuration, fetch all of it with one
+device-to-host copy, then finish each frame on the host. The single-frame
+entry points are the one-frame case.
 
 The frame host helpers below are copies of the JAX module's (it imports
 jax at module level); their semantics and "LZ4: ..." errors are unchanged.
-Linked frames, blocks over 64 KB and other engines are not ported yet and
-raise NotImplementedError; nothing falls back to another codec.
+Engines other than "split" are not ported yet and raise
+NotImplementedError; nothing falls back to another codec.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,9 +57,16 @@ from .._device import resolve_device
 from ..ops.compact_decode import decode_blocks_compact
 from ..ops.split_decode import from_reference_records, parse_wire_raw
 from ..ops.split_encode import chain_select_serialize, encode_blocks_chain
+from ..ops.wave_decode import decode_chains, stage_chains
+from ..ops.wire_decode import decode_blocks_wire, parse_wire_batch
+from .bigblock import queue_frame_big, splice_blocks_big
 
-# Largest block the port's split engine takes (u16 record and chain fields).
+# Largest block the compact decode kernel and the one-row chain encode take
+# (u16 record and chain fields); bigger blocks encode in 64 KB segments.
 SPLIT_MAX_BS = 65536
+# Largest independent block the padded wire kernel decodes
+# (device.py:_SPLIT_MAX_BS); bigger ones decode as chains.
+WIRE_MAX_BS = 262144
 
 
 def _blocks_to_batch(raw: np.ndarray, block_size: int):
@@ -229,18 +244,12 @@ class _EncodeState(NamedTuple):
     nblocks: int
     bs: int
     hist_len: int
-    config: FrameConfig
-    dict_id: Optional[int]
     chains: torch.Tensor    # u16[nb, bs] on the device, still queued
 
 
-def _compress_independent_split(data, config: FrameConfig, dictionary,
-                                device: torch.device) -> _EncodeState:
-    """Queue one frame's chain builds on *device*."""
-    raw = ensure_buffer(data)
-    bs = config.resolved_block_size
+def _compress_independent_split(raw, bs, window, device) -> _EncodeState:
+    """Queue one independent frame's chain builds on *device*."""
     work, lens, nblocks = _blocks_to_batch(raw, bs)
-    window, dict_id = _dict_window(dictionary)
     if window is not None:
         # Every independent block sees the dictionary as history: rows are
         # [64 KB window (right-aligned) | payload].
@@ -254,14 +263,35 @@ def _compress_independent_split(data, config: FrameConfig, dictionary,
         hist_start = 0
     chains = encode_blocks_chain(work, lens, bs, hist_len, hist_start,
                                  device=device)
-    return _EncodeState(raw, work, lens, nblocks, bs, hist_len, config,
-                        dict_id, chains)
+    return _EncodeState(raw, work, lens, nblocks, bs, hist_len, chains)
 
 
-def _split_encode_fetch(state: _EncodeState,
-                        chains_np: np.ndarray) -> np.ndarray:
+def _compress_linked_split(raw, bs, window, device) -> _EncodeState:
+    """Queue one linked frame's chain builds on *device*: every block's row
+    is [64 KB history | payload], the history being the preceding
+    plaintext topped up with the dictionary, so the blocks encode
+    independently of one another."""
+    work, lens, nblocks = _blocks_to_batch(raw, bs)
+    dict_len = len(window) if window is not None else 0
+    W = WINDOW_SIZE
+    hist = np.zeros((nblocks, W), np.uint8)
+    for i in range(nblocks):
+        avail = min(i * bs, W)
+        if avail > 0:
+            hist[i, W - avail:] = raw[i * bs - avail: i * bs]
+        room = W - avail
+        take = min(dict_len, room)
+        if take > 0:
+            hist[i, room - take: room] = window[dict_len - take:]
+    work = np.concatenate([hist, work], axis=1)
+    valid = np.minimum(np.arange(nblocks, dtype=np.int64) * bs + dict_len, W)
+    chains = encode_blocks_chain(work, lens, bs, W, W - valid, device=device)
+    return _EncodeState(raw, work, lens, nblocks, bs, W, chains)
+
+
+def _split_encode_fetch(state: _EncodeState, chains_np: np.ndarray) -> list:
     """Serialize every block from its fetched chain (native, on the host
-    pool) and assemble the frame."""
+    pool). Returns the blocks' streams."""
     raw, work, lens, nblocks, bs, hist_len = state[:6]
     comps = [None] * nblocks
 
@@ -290,21 +320,50 @@ def _split_encode_fetch(state: _EncodeState,
     for f in [host_pool().submit(_serialize_one, b)
               for b in range(nblocks)]:
         f.result()
-    return _assemble_frame_host(raw, comps, lens, nblocks, bs, state.config,
-                                state.dict_id)
+    return comps
 
 
-def _fetch_rows(tensors: list) -> list:
-    """Copy device tensors of one trailing shape to the host with ONE
-    device-to-host transfer; returns numpy arrays in input order."""
+def _queue_compress(raw, config: FrameConfig, window, dict_id, device
+                    ) -> tuple[torch.Tensor, Callable]:
+    """Queue one frame's chain builds on *device*. Returns (chains still
+    queued, finish) where finish(fetched chains) returns the frame."""
+    bs = config.resolved_block_size
+    n = len(raw)
+    if bs > SPLIT_MAX_BS:
+        big = queue_frame_big(raw, bs, window, not config.block_independence,
+                              device)
+
+        def finish(chains_np):
+            comps = splice_blocks_big(big, chains_np)
+            # An empty payload makes a frame with no block (bigblock.py
+            # _finish_frame_big).
+            nblocks = len(comps) if n else 0
+            lens = [min(bs, n - b * bs) for b in range(nblocks)]
+            return _assemble_frame_host(raw, comps, lens, nblocks, bs,
+                                        config, dict_id)
+        return big.chains, finish
+
+    queue = (_compress_independent_split if config.block_independence
+             else _compress_linked_split)
+    st = queue(raw, bs, window, device)
+
+    def finish(chains_np):
+        return _assemble_frame_host(raw, _split_encode_fetch(st, chains_np),
+                                    st.lens, st.nblocks, bs, config, dict_id)
+    return st.chains, finish
+
+
+def _fetch_all(tensors: list) -> list:
+    """Copy device tensors of one dtype and any shapes to the host with ONE
+    device-to-host transfer (flattened, then cut and reshaped); returns
+    numpy arrays in input order."""
     if not tensors:
         return []
-    flat = torch.cat(tensors).cpu().numpy() if len(tensors) > 1 \
-        else tensors[0].cpu().numpy()
+    flat = torch.cat([x.reshape(-1) for x in tensors]).cpu().numpy()
     out, pos = [], 0
     for x in tensors:
-        out.append(flat[pos: pos + x.shape[0]])
-        pos += x.shape[0]
+        out.append(flat[pos: pos + x.numel()].reshape(tuple(x.shape)))
+        pos += x.numel()
     return out
 
 
@@ -316,19 +375,11 @@ def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
     package's ``device_compress_frame(engine="split")``."""
     dev = resolve_device(device)
     _require_split(engine)
-    if not config.block_independence:
-        raise NotImplementedError(
-            "linked frames are not ported (ROADMAP.md queue 1 item 3: "
-            "_compress_linked_split)")
-    if config.resolved_block_size > SPLIT_MAX_BS:
-        raise NotImplementedError(
-            f"blocks of {config.resolved_block_size} bytes are not ported; "
-            "the split engine covers 64 KB blocks (ROADMAP.md queue 1 "
-            "item 6: big-block encode)")
-    states = [_compress_independent_split(d, config, dictionary, dev)
+    window, dict_id = _dict_window(dictionary)
+    queued = [_queue_compress(ensure_buffer(d), config, window, dict_id, dev)
               for d in datas]
-    fetched = _fetch_rows([s.chains for s in states])
-    return [_split_encode_fetch(s, c) for s, c in zip(states, fetched)]
+    fetched = _fetch_all([chains for chains, _ in queued])
+    return [finish(c) for (_, finish), c in zip(queued, fetched)]
 
 
 def compress_frame(data, config: FrameConfig = DEFAULT_CONFIG,
@@ -348,8 +399,10 @@ class _DecodeState(NamedTuple):
     header: dict
     buf: np.ndarray
     tail: int
-    out: Optional[torch.Tensor]          # u8[nb, bs] on the device, queued
-    out_lens: Optional[np.ndarray]       # i64[nb]
+    # queued on the device: u8[nb, bs] rows (with out_lens i64[nb]), or
+    # the whole plaintext u8[n] (out_lens None); None for no blocks
+    out: Optional[torch.Tensor]
+    out_lens: Optional[np.ndarray]
 
 
 def _decode_independent_split(buf, blocks, bs, window, device):
@@ -360,6 +413,21 @@ def _decode_independent_split(buf, blocks, bs, window, device):
     batch = from_reference_records(wire, recs_l, out_lens, hist, device)
     out = decode_blocks_compact(batch.wire, batch.rec_words, batch.rec_off,
                                 batch.out_lens, bs, batch.hist)
+    return out, out_lens
+
+
+def _decode_wide_split(buf, blocks, bs, window, device):
+    """Parse every block's records into padded rows on the host and queue
+    the wire decode kernel. Returns (out u8[nb, bs] on *device*,
+    out_lens)."""
+    entries = [(buf[off: off + size], stored) for off, size, stored in blocks]
+    wire, recs, counts, out_lens, hist = parse_wire_batch(entries, bs, window)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = decode_blocks_wire(put(wire), put(recs), put(counts), bs,
+                             None if hist is None else put(hist))
     return out, out_lens
 
 
@@ -389,16 +457,15 @@ def _stage_frame(buf, verify_checksum, window, dict_id,
                 raise ValueError("LZ4: Block Checksum Error")
     if not blocks:
         return _DecodeState(header, buf, tail, None, None)
-    if not header["independent"]:
-        raise NotImplementedError(
-            "linked frames are not ported (ROADMAP.md queue 1 item 5: "
-            "big-block and linked decode)")
-    if bs > SPLIT_MAX_BS:
-        raise NotImplementedError(
-            f"frames of {bs}-byte blocks are not ported; the split engine "
-            "covers 64 KB blocks (ROADMAP.md queue 1 items 5 and 7)")
-    out, out_lens = _decode_independent_split(buf, blocks, bs, window,
-                                              device)
+    if header["independent"] and bs <= SPLIT_MAX_BS:
+        out, out_lens = _decode_independent_split(buf, blocks, bs, window,
+                                                  device)
+    elif header["independent"] and bs <= WIRE_MAX_BS:
+        out, out_lens = _decode_wide_split(buf, blocks, bs, window, device)
+    else:
+        out = decode_chains(stage_chains(buf, blocks, header, window,
+                                         device))
+        out_lens = None
     return _DecodeState(header, buf, tail, out, out_lens)
 
 
@@ -406,6 +473,8 @@ def _finish_frame(state: _DecodeState, out_np, verify_checksum
                   ) -> np.ndarray:
     if state.out is None:
         result = np.empty(0, dtype=np.uint8)
+    elif state.out_lens is None:
+        result = out_np
     else:
         result = _split_decode_fetch(out_np, state.out_lens)
     if state.header["content_checksum"] and verify_checksum:
@@ -426,7 +495,7 @@ def decompress_frames(frames, verify_checksum: bool = True,
     window, dict_id = _dict_window(dictionary)
     states = [_stage_frame(ensure_buffer(f), verify_checksum, window,
                            dict_id, dev) for f in frames]
-    fetched = iter(_fetch_rows([s.out for s in states if s.out is not None]))
+    fetched = iter(_fetch_all([s.out for s in states if s.out is not None]))
     return [_finish_frame(s, None if s.out is None else next(fetched),
                           verify_checksum) for s in states]
 

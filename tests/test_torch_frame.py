@@ -3,8 +3,10 @@
 Frames from divortio_lz4_tpu_torch.compress_frame must be byte-identical to
 the JAX device_compress_frame(engine="split"); decompress_frame must equal
 the JAX device_decompress_frame(engine="split") and the plaintext, on those
-frames and on the golden spec frames, and raise the same errors on
-malformed frames. Tolerance: exact everywhere.
+frames and on the golden spec frames (linked ones included), and raise the
+same errors on malformed frames. Tolerance: exact everywhere. Block sizes
+over 64 KB and linked frames are held against JAX in
+tests/test_torch_bigblock.py and tests/test_torch_wave.py.
 """
 
 import os
@@ -92,13 +94,18 @@ def test_golden_frames_decode(name):
 
 
 @pytest.mark.parametrize("name", ["linked_xblock", "dict_linked"])
-def test_golden_linked_frames_not_ported(name):
-    hexs, dic = {"linked_xblock": (golden.GOLDEN_LINKED_XBLOCK, None),
-                 "dict_linked": (golden.GOLDEN_DICT,
-                                 golden.GOLDEN_DICT_DICTIONARY)}[name]
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        pt.decompress_frame(golden.from_hex(hexs), dictionary=dic,
-                            device="cpu")
+def test_golden_linked_frames_decode(name):
+    hexs, dic, plain = {
+        "linked_xblock": (golden.GOLDEN_LINKED_XBLOCK, None,
+                          golden.GOLDEN_LINKED_PLAINTEXT),
+        "dict_linked": (golden.GOLDEN_DICT, golden.GOLDEN_DICT_DICTIONARY,
+                        golden.GOLDEN_DICT_PLAINTEXT)}[name]
+    frame = golden.from_hex(hexs)
+    out = pt.decompress_frame(frame, dictionary=dic, device="cpu")
+    assert out.tobytes() == plain
+    ref = np.asarray(device_decompress_frame(frame, dictionary=dic,
+                                             engine="split"))
+    np.testing.assert_array_equal(out, ref)
 
 
 def _corrupt(kind):
@@ -163,22 +170,18 @@ def test_frames_in_flight_keep_order():
 
 def test_unsupported_configurations_raise():
     data = np.zeros(1000, np.uint8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        pt.compress_frame(data, FrameConfig(block_size=65536), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        pt.compress_frame(data, FrameConfig(block_size=262144,
-                                            block_independence=True),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="engine='xla'"):
-        pt.compress_frame(data, CFG, engine="xla", device="cpu")
-    linked = np.asarray(lz4.compress(data, config=FrameConfig(
-        block_size=65536)))
-    with pytest.raises(NotImplementedError, match="linked"):
-        pt.decompress_frame(linked, device="cpu")
-    big = np.asarray(lz4.compress(data, config=FrameConfig(
-        block_size=262144, block_independence=True)))
-    with pytest.raises(NotImplementedError, match="262144-byte blocks"):
-        pt.decompress_frame(big, device="cpu")
+    for engine in ("xla", "pallas", "hybrid"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            pt.compress_frame(data, CFG, engine=engine, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"engine='{engine}'"):
+            pt.decompress_frame(lz4.compress(data), engine=engine,
+                                device="cpu")
+    # the default configuration (4 MB linked blocks) is ported
+    frame = pt.compress_frame(data, FrameConfig(), device="cpu")
+    assert frame.tobytes() == np.asarray(device_compress_frame(
+        data, FrameConfig(), engine="split")).tobytes()
+    np.testing.assert_array_equal(pt.decompress_frame(frame, device="cpu"),
+                                  data)
 
 
 def test_device_is_explicit():
