@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Layer breakdown of one default-config frame on one GPU.
+"""Layer breakdown of one frame on one GPU.
 
-    python3 chip_breakdown.py [--mib 64] [--seed N]
+    python3 chip_breakdown.py [--mib 64] [--seed N] [--engine split|pallas]
 
 Encodes bench.build_corpus(MiB, seed) as one FrameConfig() frame (4 MB
 linked blocks) with a content checksum, then decodes it, and times each
@@ -14,6 +14,15 @@ those of the default frame's route through parallel/device.py:
   with the content xxh32;
 - decode: block index, piece scan, scan + parse, chain arrays, H2D,
   chain_decode kernel, D2H of the output, content xxh32.
+
+With ``--engine pallas`` the frame is the engine="pallas" one instead: 64 KB
+independent blocks with a content checksum, whose layers are
+
+- encode: blocks to batch, H2D of the rows, greedy_encode kernel (CUDA
+  events), D2H of the rows and lengths, frame assembly with the content
+  xxh32;
+- decode: block index, padded comp rows + H2D, token_decode kernel (CUDA
+  events), D2H of the rows and lengths, joining rows, content xxh32.
 
 Then one compress_frame and one decompress_frame run under torch.profiler.
 The device busy share of a call is the union of its device activity
@@ -83,29 +92,9 @@ def _busy(torch, fn):
     return wall, union / 1e3, sum(per_op.values()), dict(per_op)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mib", type=int, default=64)
-    ap.add_argument("--seed", type=int, default=0x51E51A)
-    args = ap.parse_args()
-
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_breakdown: torch.cuda.is_available() is False; this "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True, timeout=60)
-    card = card.stdout.strip().splitlines()[0]
-    print(card)
-
-    import divortio_lz4_tpu_torch as pt
-    from bench import build_corpus
-    from divortio_lz4_tpu.config import FrameConfig
-    from divortio_lz4_tpu.constants import WINDOW_SIZE
-    from divortio_lz4_tpu.utils.pool import host_pool
-    from divortio_lz4_tpu.xxh import xxhash32
+def _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res):
+    """The default frame's layers (split engine)."""
+    from divortio_lz4_tpu_torch.constants import WINDOW_SIZE
     from divortio_lz4_tpu_torch.ops.split_encode import encode_blocks_chain
     from divortio_lz4_tpu_torch.ops.wave_decode import (
         ChainBatch, _block_out_len, build_chain_arrays, decode_chains,
@@ -113,23 +102,11 @@ def main() -> int:
     from divortio_lz4_tpu_torch.parallel import bigblock as bb
     from divortio_lz4_tpu_torch.parallel.device import (
         _assemble_frame_host, parse_block_index)
+    from divortio_lz4_tpu_torch.utils import host_pool
+    from divortio_lz4_tpu_torch.xxh import xxhash32
 
-    dev = torch.device("cuda:0")
-    raw = build_corpus(args.mib * MIB, args.seed)
     n = len(raw)
-    cfg = FrameConfig(content_checksum=True)
     bs = cfg.resolved_block_size
-    frame = pt.compress_frame(raw, cfg, device=dev)          # warm-up
-    if pt.decompress_frame(frame, device=dev).tobytes() != raw.tobytes():
-        raise AssertionError("round trip is not exact")
-    res = {"card": card, "mib": args.mib, "encode": {}, "decode": {}}
-
-    def layer(side, name, fn, reps=3):
-        ms, out = _median_ms(torch, fn, reps)
-        res[side][name] = ms
-        print(f"{side}: {name}: {ms:.1f} ms")
-        return out
-
     # -- encode ----------------------------------------------------------
     res["encode"]["compress_frame"] = _median_ms(
         torch, lambda: pt.compress_frame(raw, cfg, device=dev))[0]
@@ -179,29 +156,132 @@ def main() -> int:
         torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays])
     batch = ChainBatch(*tensors, None, int(arrays[4][-1]))
     res["decode"]["records"] = int(arrays[2].shape[0])
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    kms = []
-    for _ in range(3):
-        start.record()
-        out = decode_chains(batch)
-        stop.record()
-        torch.cuda.synchronize()
-        kms.append(start.elapsed_time(stop))
-    res["decode"]["chain_decode kernel (CUDA events)"] = statistics.median(
-        kms)
-    print(f"decode: chain_decode kernel (CUDA events): "
-          f"{statistics.median(kms):.1f} ms, {arrays[2].shape[0]} records")
+    out = kernel("decode", "chain_decode", lambda: decode_chains(batch),
+                 f", {arrays[2].shape[0]} records")
     out_np = layer("decode", "D2H output", lambda: out.cpu().numpy())
     layer("decode", "content xxh32", lambda: xxhash32(out_np, 0))
     if out_np.tobytes() != raw.tobytes():
         raise AssertionError("the layers' output differs from the corpus")
 
+
+def _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel):
+    """The engine="pallas" 64 KB frame's layers."""
+    from divortio_lz4_tpu_torch.ops.greedy_encode import encode_blocks_pallas
+    from divortio_lz4_tpu_torch.ops.token_decode import decode_blocks_pallas
+    from divortio_lz4_tpu_torch.parallel.device import (
+        _assemble_frame_host, _blocks_to_batch, _fetch_all,
+        parse_block_index, stage_token_blocks)
+    from divortio_lz4_tpu_torch.xxh import xxhash32
+
+    n = len(raw)
+    bs = cfg.resolved_block_size
+    layer("encode", "compress_frame",
+          lambda: pt.compress_frame(raw, cfg, engine="pallas", device=dev))
+    work, lens, nblocks = layer("encode", "blocks to batch (host)",
+                                lambda: _blocks_to_batch(raw, bs))
+    w = layer("encode", "H2D work rows",
+              lambda: torch.from_numpy(work).to(dev))
+    ln = torch.from_numpy(lens.astype(np.int64)).to(dev)
+    out = kernel("encode", "greedy_encode",
+                 lambda: encode_blocks_pallas(w, ln, bs))
+    rows, ols = layer("encode", "D2H rows + lengths",
+                      lambda: _fetch_all(list(out)))
+    got = layer("encode", "assemble + content xxh32", lambda:
+                _assemble_frame_host(raw, [rows[b, : ols[b]]
+                                           for b in range(nblocks)],
+                                     lens, nblocks, bs, cfg, None))
+    if got.tobytes() != np.asarray(frame).tobytes():
+        raise AssertionError("the layers' frame differs from compress_frame")
+
+    layer("decode", "decompress_frame",
+          lambda: pt.decompress_frame(frame, engine="pallas", device=dev))
+    header, blocks, _ = layer("decode", "parse_block_index",
+                              lambda: parse_block_index(frame))
+    comp, clens, _ = layer("decode", "comp rows + H2D",
+                           lambda: stage_token_blocks(frame, blocks, None,
+                                                      dev))
+    dec = kernel("decode", "token_decode",
+                 lambda: decode_blocks_pallas(comp, clens, bs))
+    rows, ols = layer("decode", "D2H rows + lengths",
+                      lambda: _fetch_all(list(dec)))
+    out_np = layer("decode", "join rows", lambda: np.concatenate([
+        frame[o: o + s] if st else rows[i, : ols[i]]
+        for i, (o, s, st) in enumerate(blocks)]))
+    layer("decode", "content xxh32", lambda: xxhash32(out_np, 0))
+    if out_np.tobytes() != raw.tobytes():
+        raise AssertionError("the layers' output differs from the corpus")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mib", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0x51E51A)
+    ap.add_argument("--engine", choices=("split", "pallas"), default="split")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_breakdown: torch.cuda.is_available() is False; this "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60)
+    card = card.stdout.strip().splitlines()[0]
+    print(card)
+
+    import divortio_lz4_tpu_torch as pt
+    from bench import build_corpus
+    from divortio_lz4_tpu_torch.config import FrameConfig
+
+    dev = torch.device("cuda:0")
+    raw = build_corpus(args.mib * MIB, args.seed)
+    n = len(raw)
+    engine = args.engine
+    cfg = FrameConfig(content_checksum=True)
+    if engine == "pallas":
+        cfg = cfg.with_(block_size=65536, block_independence=True)
+    bs = cfg.resolved_block_size
+    frame = pt.compress_frame(raw, cfg, engine=engine, device=dev)  # warm-up
+    if pt.decompress_frame(frame, engine=engine,
+                           device=dev).tobytes() != raw.tobytes():
+        raise AssertionError("round trip is not exact")
+    res = {"card": card, "mib": args.mib, "encode": {}, "decode": {}}
+    if engine == "pallas":
+        res["engine"] = engine
+
+    def layer(side, name, fn, reps=3):
+        ms, out = _median_ms(torch, fn, reps)
+        res[side][name] = ms
+        print(f"{side}: {name}: {ms:.1f} ms")
+        return out
+
+    def kernel(side, name, fn, note=""):
+        """fn() timed by CUDA events, median of 3; returns its result."""
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        kms = []
+        for _ in range(3):
+            start.record()
+            out = fn()
+            stop.record()
+            torch.cuda.synchronize()
+            kms.append(start.elapsed_time(stop))
+        res[side][f"{name} kernel (CUDA events)"] = statistics.median(kms)
+        print(f"{side}: {name} kernel (CUDA events): "
+              f"{statistics.median(kms):.1f} ms{note}")
+        return out
+
+    if engine == "pallas":
+        _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel)
+    else:
+        _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res)
+
     # -- device busy share -----------------------------------------------
-    for side, fn in (("encode", lambda: pt.compress_frame(raw, cfg,
-                                                          device=dev)),
-                     ("decode", lambda: pt.decompress_frame(frame,
-                                                            device=dev))):
+    for side, fn in (("encode", lambda: pt.compress_frame(
+                        raw, cfg, engine=engine, device=dev)),
+                     ("decode", lambda: pt.decompress_frame(
+                         frame, engine=engine, device=dev))):
         wall, union, summed, per_op = _busy(torch, fn)
         top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
         share = union / wall if per_op else None    # no device events

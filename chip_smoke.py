@@ -5,19 +5,25 @@
 
 Phases, each printed on its own line:
 
+Every frame is made by the port itself: engine="pallas" (the reference
+encoder's greedy scan, byte-identical to the host encoder) for independent
+frames without a dictionary, the split engine for the rest. Every check
+that a frame is decodable elsewhere decodes it with the other engine,
+which must be exact.
+
 1. Device and build: the card's name and power limit (nvidia-smi), the
-   nvcc builds of csrc/compact_decode.cu and csrc/chain_decode.cu from
-   this checkout (started together), their ptxas registers and spills,
-   the native host tier.
+   nvcc builds of csrc/{compact_decode,chain_decode,greedy_encode,
+   token_decode}.cu and the g++ build of csrc/host_kernels.cpp from this
+   checkout (all started together), and ptxas's registers and spills.
 2. Kernel vs plain: the CUDA compact-decode kernel against its plain
    PyTorch version on the card, byte for byte, on the 64 MiB corpus
    frame's blocks (the main-path shape), dense 64 KB blocks, a dictionary
    batch and a batch with one row of random records; both timed with CUDA
    events.
 3. One 64 MiB frame through compress_frame / decompress_frame (64 KB
-   independent blocks, content checksum): exact round trip, decodable by
-   the host C++ codec, size against the host encoder's, MB/s, and the
-   kernel's launch count during the run.
+   independent blocks, content checksum): exact round trip, decoded
+   exactly by engine="pallas" too, size against the engine="pallas"
+   frame's, MB/s, and the kernel's launch count during the run.
 4. 16 frames of 4 MiB in flight through compress_frames /
    decompress_frames, one with block checksums and one with a dictionary.
 5. Kernel vs plain for the chain and wide-block kernels, byte for byte,
@@ -28,17 +34,34 @@ Phases, each printed on its own line:
    batch phase 6 decodes) and on 32 such blocks with a dictionary.
 6. The default frame (FrameConfig(): 4 MB linked blocks) at 64 MiB, with a
    content checksum, through compress_frame / decompress_frame: exact
-   round trip, host-decodable, size against the host encoder, MB/s
-   (median of 3) and chain_decode's launch count; then once each for
+   round trip, decoded exactly by engine="pallas", size against the
+   engine="pallas" frame at 4 MB independent blocks, MB/s (median of 3)
+   and chain_decode's launch count; the engine="pallas" frame at 4 MB
+   independent blocks decoded exactly by both engines; then once each for
    independent 4 MB, independent 256 KB and linked 64 KB blocks, each with
    its kernel's launch count.
 7. 16 default-config frames of 4 MiB in flight, and one decompress_frames
    call over a mixed batch (64 KB and 256 KB independent, 4 MB linked
    with a dictionary).
+8. The engine="pallas" kernels against their plain versions, byte for
+   byte, each timed with CUDA events: greedy_encode on 32 corpus blocks, 8
+   random, one zero, one short and one empty row, and on 256 KB and 4 MB
+   rows with repeats 65535 and 65536 bytes back (timed on the 64 MiB
+   frame's 1024 rows); token_decode on the 64 MiB frame's 1024 blocks, a
+   dictionary batch and a batch with one row of random bytes;
+   token_decode_linked on a linked 64 KB frame with a dictionary and
+   stored blocks, an independent 4 MB-block frame and a linked frame of
+   three 4 MB blocks, each also decoded to its plaintext (timed on the
+   64 MiB default frame). Then 64 MiB at 64 KB independent blocks with a
+   content checksum through compress_frame / decompress_frame with
+   engine="pallas" (exact, MB/s median of 3, launch counts), and the 64 MiB
+   default frame decoded with engine="pallas".
 
-Then a JSON line describing the kernels, and last the device line. Any
+Then a JSON line describing the kernels (with each one's bound: the bytes
+the function must move, without row padding, over the H100's 3.35 TB/s),
+and last the device line. Any
 failed check raises and the exit code is non-zero. Needs an NVIDIA GPU,
-nvcc and g++; never imports jax.
+nvcc and g++; imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +77,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 MIB = 1 << 20
+HBM_BYTES_PER_MS = 3.35e9   # H100 SXM HBM3, 3.35 TB/s (NVIDIA data sheet)
+CUDA_SOURCES = ("compact_decode", "chain_decode", "greedy_encode",
+                "token_decode")
 
 
 def _card() -> str:
@@ -78,6 +104,51 @@ def _cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _timed(torch, fn):
+    """(fn(), milliseconds of that one call by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _bound_ms(*parts) -> float:
+    """The least time the card could take: the bytes the function must
+    move over the HBM rate. Each part is a byte count (the wire bytes of
+    padded rows, the decoded bytes), a tensor read or written whole, or
+    None."""
+    n = sum(x if isinstance(x, int) else x.numel() * x.element_size()
+            for x in parts if x is not None)
+    return n / HBM_BYTES_PER_MS
+
+
+def _wire_bytes(entries) -> int:
+    """The compressed bytes of a batch's blocks, without row padding."""
+    return sum(len(c) for c, _ in entries)
+
+
+def _port_frame(pt, x, cfg, dev, dictionary=None):
+    """The port's frame of *x*: engine="pallas" (reference-identical) for
+    an independent frame without a dictionary, the split engine for the
+    rest."""
+    engine = "pallas" if cfg.block_independence and dictionary is None \
+        else "split"
+    return pt.compress_frame(x, cfg, dictionary=dictionary, engine=engine,
+                             device=dev)
+
+
+def _other_engine_exact(pt, frame, x, dev, engine, dictionary=None, what=""):
+    """Decode *frame* with *engine* (the one that did not make it); it
+    must give *x* exactly."""
+    out = pt.decompress_frame(frame, dictionary=dictionary, engine=engine,
+                              device=dev)
+    if out.tobytes() != np.asarray(x).tobytes():
+        raise AssertionError(f"{what}: engine={engine!r} decode differs")
+
+
 def _batch(entries, window, device):
     from divortio_lz4_tpu_torch.ops.split_decode import (
         from_reference_records, parse_wire_raw)
@@ -100,25 +171,32 @@ def _chain_batch(frame, window, device):
     return stage_chains(frame, blocks, header, window, device)
 
 
-def _compare(torch, name, got, want, tag) -> int:
-    """Byte-for-byte kernel vs plain; returns the max abs difference (0)."""
+def _compare(torch, name, got, want, tag, phase=5) -> int:
+    """Byte-for-byte kernel vs plain; returns the max abs difference (0).
+    *got* and *want* are tensors or tuples of tensors."""
     torch.cuda.synchronize()
-    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
-    if err or got.shape != want.shape:
-        bad = (got != want).reshape(got.shape[0], -1).any(1).nonzero()
-        raise AssertionError(f"{name}: kernel != plain (rows "
-                             f"{bad.flatten().tolist()[:8]})")
-    print(f"phase 5: {name}: kernel == plain byte for byte {tag}")
+    err = 0
+    for g, w in zip(*((x,) if torch.is_tensor(x) else x
+                      for x in (got, want))):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: kernel shape {tuple(g.shape)} "
+                                 f"!= plain {tuple(w.shape)}")
+        e = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+        if e:
+            bad = (g != w).reshape(g.shape[0], -1).any(1).nonzero()
+            raise AssertionError(f"{name}: kernel != plain (rows "
+                                 f"{bad.flatten().tolist()[:8]})")
+        err = max(err, e)
+    print(f"phase {phase}: {name}: kernel == plain byte for byte {tag}")
     return err
 
 
-def _phase5(torch, dev, corpus, seed, tag):
+def _phase5(torch, pt, dev, corpus, seed, tag):
     """chain_decode and wire_decode against their plain versions.
-    Returns ((max_err, ms, plain_ms) for chain, the same for wire), timed
-    on the 4 MiB default-config frame and on the 256 independent 256 KB
-    blocks of the 64 MiB corpus (phase 6's batch)."""
-    import divortio_lz4_tpu as lz4
-    from divortio_lz4_tpu.config import FrameConfig
+    Returns ((max_err, ms, plain_ms, bound_ms) for chain, the same for
+    wire), timed on the 4 MiB default-config frame and on the 256
+    independent 256 KB blocks of the 64 MiB corpus (phase 6's batch)."""
+    from divortio_lz4_tpu_torch import FrameConfig
     from divortio_lz4_tpu_torch.ops.wave_decode import (
         decode_chains, decode_chains_plain)
     from divortio_lz4_tpu_torch.ops.wire_decode import (
@@ -130,8 +208,9 @@ def _phase5(torch, dev, corpus, seed, tag):
     rng = np.random.default_rng(seed)
 
     def frame(x, bs, indep, dic=None):
-        return np.asarray(lz4.compress(x, dictionary=dic, config=FrameConfig(
-            block_size=bs, block_independence=indep)))
+        return _port_frame(pt, x, FrameConfig(block_size=bs,
+                                              block_independence=indep),
+                           dev, dic)
 
     cases = {
         "linked_4m": _chain_batch(frame(data[:4 * MIB], 4 * MIB, False),
@@ -167,7 +246,8 @@ def _phase5(torch, dev, corpus, seed, tag):
     print(f"phase 5: hostile: no fault, the other chains exact {tag}")
     main = cases["linked_4m"]
     chain = (chain_err, _cuda_ms(torch, lambda: decode_chains(main), 5),
-             _cuda_ms(torch, lambda: decode_chains_plain(main), 1, False))
+             _cuda_ms(torch, lambda: decode_chains_plain(main), 1, False),
+             _bound_ms(*main[:6], main.out_total))
     print(f"phase 5: chain_decode linked_4m: kernel {chain[1]:.3f} ms "
           f"({main.out_total / chain[1] / 1e3:.1f} MB/s), plain "
           f"{chain[2]:.1f} ms {tag}")
@@ -177,7 +257,8 @@ def _phase5(torch, dev, corpus, seed, tag):
     wire_err, timed = 0, None
     for x, dic in ((corpus, None), (data, d)):
         entries = _frame_entries(frame(x, 256 * 1024, True, dic))
-        w, recs, counts, _, hist = parse_wire_batch(entries, 256 * 1024, dic)
+        w, recs, counts, out_lens, hist = parse_wire_batch(entries,
+                                                           256 * 1024, dic)
         args_ = [torch.from_numpy(a).to(dev) for a in (w, recs, counts)]
         args_ += [256 * 1024,
                   None if hist is None else torch.from_numpy(hist).to(dev)]
@@ -187,19 +268,24 @@ def _phase5(torch, dev, corpus, seed, tag):
             torch, name, decode_blocks_wire(*args_),
             decode_blocks_wire_plain(*args_), tag))
         if timed is None:
+            # wire bytes, records (8 B each) and counts in, decoded bytes out
             timed, timed_name = args_, name
+            wire_need = _wire_bytes(entries) + 8 * int(counts.sum()) \
+                + 4 * len(counts) + int(out_lens.sum())
     wire = (wire_err, _cuda_ms(torch, lambda: decode_blocks_wire(*timed), 5),
             _cuda_ms(torch, lambda: decode_blocks_wire_plain(*timed), 1,
-                     False))
+                     False),
+            _bound_ms(wire_need))
     print(f"phase 5: {timed_name}: kernel {wire[1]:.3f} ms "
           f"({len(corpus) / wire[1] / 1e3:.1f} MB/s), plain {wire[2]:.1f} "
           f"ms {tag}")
     return chain, wire
 
 
-def _roundtrip(pt, lz4, corpus, cfg, dev, reps):
-    """Encode and decode *corpus* *reps* times; checks and returns (frame,
-    encode seconds, decode seconds)."""
+def _roundtrip(pt, corpus, cfg, dev, reps):
+    """Encode and decode *corpus* *reps* times with the split engine;
+    checks (engine="pallas" decodes the frame exactly too) and returns
+    (frame, encode seconds, decode seconds)."""
     t_enc, t_dec = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -211,35 +297,40 @@ def _roundtrip(pt, lz4, corpus, cfg, dev, reps):
         t_dec.append(t2 - t1)
         if out.tobytes() != corpus.tobytes():
             raise AssertionError(f"{cfg}: round trip is not exact")
-    if np.asarray(lz4.decompress(frame)).tobytes() != corpus.tobytes():
-        raise AssertionError(f"{cfg}: host C++ decode of the port's frame "
-                             "differs")
+    _other_engine_exact(pt, frame, corpus, dev, "pallas", what=str(cfg))
     return frame, t_enc, t_dec
 
 
-def _phase6(torch, pt, lz4, dev, corpus, tag):
+def _phase6(torch, pt, dev, corpus, tag):
     """The default frame at 64 MiB, then the other block routes once.
-    Returns the launch counts of chain_decode (default frame) and
-    wire_decode (256 KB blocks)."""
-    from divortio_lz4_tpu.config import FrameConfig
+    Returns (the default frame, the launch counts of chain_decode (default
+    frame) and wire_decode (256 KB blocks))."""
+    from divortio_lz4_tpu_torch import FrameConfig
     from divortio_lz4_tpu_torch.ops.compact_decode import decode_blocks_compact
     from divortio_lz4_tpu_torch.ops.wave_decode import decode_chains
     from divortio_lz4_tpu_torch.ops.wire_decode import decode_blocks_wire
 
     n = len(corpus)
     cfg = FrameConfig(content_checksum=True)
-    host = np.asarray(lz4.compress(corpus, config=cfg))
-    _roundtrip(pt, lz4, corpus, cfg, dev, 1)          # warm-up
+    ref = pt.compress_frame(corpus, cfg.with_(block_independence=True),
+                            engine="pallas", device=dev)
+    for engine in ("split", "pallas"):
+        _other_engine_exact(pt, ref, corpus, dev, engine,
+                            what="engine='pallas' 4 MB-block frame")
+    print(f"phase 6: engine='pallas' frame at 4 MB independent blocks, "
+          f"{len(ref)} B: both engines decode it exactly {tag}")
+    _roundtrip(pt, corpus, cfg, dev, 1)          # warm-up
     decode_chains.launches = 0
-    frame, t_enc, t_dec = _roundtrip(pt, lz4, corpus, cfg, dev, 3)
+    frame, t_enc, t_dec = _roundtrip(pt, corpus, cfg, dev, 3)
     chain_launches = decode_chains.launches
     if chain_launches < 1:
         raise AssertionError("the default frame never launched chain_decode")
     enc_s, dec_s = statistics.median(t_enc), statistics.median(t_dec)
     print(f"phase 6: default frame (4 MB linked) 64 MiB, {len(frame)} B, "
-          f"ratio vs host encoder {len(frame) / len(host):.4f} "
-          f"({len(host)} B); round trip exact, host-decodable; "
-          f"chain_decode launches {chain_launches} {tag}")
+          f"ratio vs the engine='pallas' frame at 4 MB independent blocks "
+          f"{len(frame) / len(ref):.4f} ({len(ref)} B); round trip exact, "
+          f"engine='pallas' decodes it exactly; chain_decode launches "
+          f"{chain_launches} {tag}")
     print(f"phase 6: default frame: encode {n / enc_s / 1e6:.1f} MB/s, "
           f"decode {n / dec_s / 1e6:.1f} MB/s (median of 3; enc {t_enc}, "
           f"dec {t_dec} s) {tag}")
@@ -256,20 +347,20 @@ def _phase6(torch, pt, lz4, dev, corpus, tag):
             ("linked 64 KB", FrameConfig(block_size=65536), "chain_decode")):
         for fn in counters.values():
             fn.launches = 0
-        frame, t_enc, t_dec = _roundtrip(pt, lz4, corpus, c, dev, 1)
+        f, t_enc, t_dec = _roundtrip(pt, corpus, c, dev, 1)
         counts[label] = counters[kernel].launches
         if counts[label] < 1:
             raise AssertionError(f"{label} never launched {kernel}")
-        print(f"phase 6: {label} 64 MiB, {len(frame)} B: exact, "
-              f"host-decodable; encode {n / t_enc[0] / 1e6:.1f} MB/s, decode "
-              f"{n / t_dec[0] / 1e6:.1f} MB/s; {kernel} launches "
+        print(f"phase 6: {label} 64 MiB, {len(f)} B: exact, engine='pallas' "
+              f"decodes it exactly; encode {n / t_enc[0] / 1e6:.1f} MB/s, "
+              f"decode {n / t_dec[0] / 1e6:.1f} MB/s; {kernel} launches "
               f"{counts[label]} {tag}")
-    return chain_launches, counts["independent 256 KB"]
+    return frame, chain_launches, counts["independent 256 KB"]
 
 
-def _phase7(torch, pt, lz4, dev, corpus, d, tag):
+def _phase7(torch, pt, dev, corpus, d, tag):
     """Default-config frames in flight, and a mixed batch in one call."""
-    from divortio_lz4_tpu.config import FrameConfig
+    from divortio_lz4_tpu_torch import FrameConfig
     n = 64 * MIB
     datas = [corpus[i * 4 * MIB: (i + 1) * 4 * MIB] for i in range(16)]
     t0 = time.perf_counter()
@@ -291,16 +382,282 @@ def _phase7(torch, pt, lz4, dev, corpus, d, tag):
     frames = [pt.compress_frame(x, c, dictionary=d, device=dev)
               for x, c in mixed]
     outs = pt.decompress_frames(frames, dictionary=d, device=dev)
-    for (x, c), f, o in zip(mixed, frames, outs):
+    for (x, c), o in zip(mixed, outs):
         if o.tobytes() != x.tobytes():
             raise AssertionError(f"mixed batch: {c} differs")
-        if np.asarray(lz4.decompress(f, dictionary=d)).tobytes() \
-                != x.tobytes():
-            raise AssertionError(f"mixed batch: host decode of {c} differs")
+    outs = pt.decompress_frames(frames, dictionary=d, engine="pallas",
+                                device=dev)
+    for (x, c), o in zip(mixed, outs):
+        if o.tobytes() != x.tobytes():
+            raise AssertionError(f"mixed batch: engine='pallas' decode of "
+                                 f"{c} differs")
     print(f"phase 7: mixed batch (64 KB, 256 KB independent; 4 MB linked; "
-          f"dictionary) exact in one decompress_frames call {tag}")
+          f"dictionary) exact in one decompress_frames call, with either "
+          f"engine {tag}")
     peak = torch.cuda.max_memory_allocated() / MIB
     print(f"phase 7: peak device memory {peak:.0f} MiB {tag}")
+
+
+def _json_payload(n: int) -> np.ndarray:
+    """JSON event records (bench.build_corpus's log records): few LZ4
+    sequences per KB, so the plain versions stay quick."""
+    rec = (b'{"ts":1700000000,"level":"info","service":"api-gateway",'
+           b'"msg":"request completed","status":200,"latency_ms":%d,'
+           b'"path":"/v1/users/%d"}\n')
+    return np.frombuffer(b"".join(rec % (i % 900, i * 7919 % 100000)
+                                  for i in range(n // 120 + 1)),
+                         np.uint8)[:n].copy()
+
+
+def _json_low(n: int, rng) -> np.ndarray:
+    """*n* bytes of 60000-byte periods of JSON records, one byte of each
+    period changed: a few LZ4 sequences per period, so the plain versions
+    stay quick on blocks of 4 MB."""
+    x = np.tile(_json_payload(60_000), n // 60_000 + 1)[:n]
+    at = np.arange(0, n, 60_000) + rng.integers(0, 60_000, -(-n // 60_000))
+    x[at[at < n]] = ord("#")
+    return x
+
+
+def _far_row(n: int, at: int, rng) -> np.ndarray:
+    """*n* bytes, zeros but for two 8 KB chunks of random bytes, each
+    written twice: one at 0 and 65535 (a match at the largest offset), one
+    at *at* and at + 65536, where every candidate lies one byte past the
+    window and the encoder must refuse it."""
+    row = np.zeros(n, np.uint8)
+    for start, gap in ((0, 65535), (at, 65536)):
+        chunk = rng.integers(1, 256, 8192, dtype=np.uint8)
+        row[start: start + 8192] = chunk
+        row[start + gap: start + gap + 8192] = chunk
+    return row
+
+
+def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
+            default_frame, seed, tag):
+    """The engine="pallas" kernels against their plain versions, timed;
+    then the engine's main path. Returns {kernel name: JSON fields}."""
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.ops.greedy_encode import (
+        encode_blocks_pallas, encode_blocks_pallas_plain)
+    from divortio_lz4_tpu_torch.ops.token_decode import (
+        decode_blocks_pallas, decode_blocks_pallas_plain, decode_token_chains,
+        decode_token_chains_plain)
+    from divortio_lz4_tpu_torch.parallel.device import (
+        _blocks_to_batch, parse_block_index, stage_token_blocks,
+        stage_token_chains)
+
+    rng = np.random.default_rng(seed + 8)
+    B = 65536
+    res = {}
+
+    # -- greedy_encode ---------------------------------------------------
+    nblk = len(corpus) // B
+    rows = [corpus[(k * nblk // 32) * B: (k * nblk // 32 + 1) * B]
+            for k in range(32)]
+    rows += [rng.integers(0, 256, B, dtype=np.uint8) for _ in range(8)]
+    rows += [np.zeros(B, np.uint8), corpus[:10], corpus[:0]]
+    work = np.zeros((len(rows), B), np.uint8)
+    lens = np.array([len(r) for r in rows], np.int64)
+    for i, r in enumerate(rows):
+        work[i, : len(r)] = r
+    w, ln = torch.from_numpy(work).to(dev), torch.from_numpy(lens).to(dev)
+    got = encode_blocks_pallas(w, ln, B)
+    want, plain_ms = _timed(torch, lambda: encode_blocks_pallas_plain(w, ln,
+                                                                      B))
+    err = _compare(torch, f"greedy_encode {len(rows)} rows (32 corpus, 8 "
+                   "random, zero, short, empty)", got, want, tag, 8)
+    # past 64 KB the window check decides: repeats 65535 and 65536 back
+    for bs, far in ((256 * 1024, [_far_row(256 * 1024, 150_000, rng),
+                                  _json_payload(200_000)]),
+                    (4 * MIB, [_far_row(4 * MIB, 3 * MIB, rng)])):
+        fw = np.zeros((len(far), bs), np.uint8)
+        for i, r in enumerate(far):
+            fw[i, : len(r)] = r
+        fw = torch.from_numpy(fw).to(dev)
+        fl = torch.tensor([len(r) for r in far], dtype=torch.int64,
+                          device=dev)
+        err = max(err, _compare(
+            torch, f"greedy_encode {len(far)} x {bs >> 10} KB rows with "
+            "repeats 65535 and 65536 bytes back", encode_blocks_pallas(
+                fw, fl, bs), encode_blocks_pallas_plain(fw, fl, bs), tag, 8))
+    mw, ml, _ = _blocks_to_batch(corpus, B)
+    mw = torch.from_numpy(mw).to(dev)
+    ml = torch.from_numpy(ml.astype(np.int64)).to(dev)
+    mout = encode_blocks_pallas(mw, ml, B)
+    ms = _cuda_ms(torch, lambda: encode_blocks_pallas(mw, ml, B), 5)
+    # payload and lengths in, the encoded streams and lengths out
+    res["greedy_encode"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=_bound_ms(int(ml.sum()), ml, int(mout[1].sum()), mout[1]))
+    print(f"phase 8: greedy_encode {mw.shape[0]} x 64 KB (the 64 MiB "
+          f"frame's rows): kernel {ms:.3f} ms ({len(corpus) / ms / 1e3:.1f} "
+          f"MB/s), plain {plain_ms:.1f} ms on the {len(rows)}-row batch, "
+          f"bound {res['greedy_encode']['bound_ms']:.4f} ms {tag}")
+
+    # -- token_decode ----------------------------------------------------
+    def blocks_of(frame, window):
+        _, blocks, _ = parse_block_index(frame)
+        return blocks, stage_token_blocks(frame, blocks, window, dev)
+
+    blocks, main = blocks_of(ref_frame, None)
+    got = decode_blocks_pallas(main[0], main[1], B, main[2])
+    want, plain_ms = _timed(torch, lambda: decode_blocks_pallas_plain(
+        main[0], main[1], B, main[2]))
+    err = _compare(torch, f"token_decode {len(blocks)} x 64 KB (the 64 MiB "
+                   "frame's blocks)", got, want, tag, 8)
+    rows_np, lens_np = got[0].cpu().numpy(), got[1].cpu().numpy()
+    joined = np.concatenate([ref_frame[o: o + s] if st
+                             else rows_np[i, : lens_np[i]]
+                             for i, (o, s, st) in enumerate(blocks)])
+    if joined.tobytes() != corpus.tobytes():
+        raise AssertionError("token_decode of the 64 MiB frame's blocks "
+                             "does not give the corpus")
+    _, dic = blocks_of(dict_frame, d)
+    dgot = decode_blocks_pallas(dic[0], dic[1], B, dic[2])
+    err = max(err, _compare(torch, f"token_decode {dic[0].shape[0]} blocks "
+                            "with a dictionary", dgot,
+                            decode_blocks_pallas_plain(dic[0], dic[1], B,
+                                                       dic[2]), tag, 8))
+    hostile = dic[0].clone()
+    h = min(5, hostile.shape[0] - 1)
+    nh = int(dic[1][h])
+    hostile[h, :nh] = torch.from_numpy(rng.integers(
+        0, 256, nh, dtype=np.uint8)).to(dev)
+    hgot = decode_blocks_pallas(hostile, dic[1], B, dic[2])
+    err = max(err, _compare(torch, f"token_decode, row {h} random bytes",
+                            hgot, decode_blocks_pallas_plain(
+                                hostile, dic[1], B, dic[2]), tag, 8))
+    others = [i for i in range(hostile.shape[0]) if i != h]
+    if not (torch.equal(hgot[0][others], dgot[0][others])
+            and torch.equal(hgot[1][others], dgot[1][others])):
+        raise AssertionError(f"random bytes in row {h} changed another row")
+    print(f"phase 8: token_decode hostile row: no fault, the other "
+          f"{len(others)} rows exact {tag}")
+    ms = _cuda_ms(torch, lambda: decode_blocks_pallas(main[0], main[1], B,
+                                                      main[2]), 5)
+    # wire bytes and lengths in, decoded bytes and lengths out
+    res["token_decode"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=_bound_ms(int(main[1].sum()), main[1], int(got[1].sum()),
+                           got[1]))
+    print(f"phase 8: token_decode {len(blocks)} x 64 KB: kernel {ms:.3f} ms "
+          f"({len(corpus) / ms / 1e3:.1f} MB/s of output), plain "
+          f"{plain_ms:.1f} ms, bound {res['token_decode']['bound_ms']:.4f} "
+          f"ms {tag}")
+
+    # -- token_decode_linked ---------------------------------------------
+    linked = np.concatenate([_json_payload(3 * B),
+                             rng.integers(0, 256, B, dtype=np.uint8),
+                             _json_payload(2 * B)[B // 2:]])
+    lframe = pt.compress_frame(linked, FrameConfig(block_size=B),
+                               dictionary=d, device=dev)
+    big = np.concatenate([np.repeat(rng.integers(0, 256, 8192,
+                                                 dtype=np.uint8), 512),
+                          _json_payload(4 * B)])
+    bframe = pt.compress_frame(big, FrameConfig(block_independence=True),
+                               engine="pallas", device=dev)
+    # the default frame's row shape and chaining: 3 linked 4 MB blocks
+    low = _json_low(3 * 4 * MIB - 5000, rng)
+    dframe = pt.compress_frame(low, FrameConfig(), device=dev)
+    err, plain_ms = 0, None
+    for name, frame, x, window, scan in (
+            ("linked 64 KB, dictionary, stored block", lframe, linked, d,
+             False),
+            ("independent 4 MB blocks", bframe, big, None, True),
+            ("linked 4 MB blocks (the default config)", dframe, low, None,
+             True)):
+        header, blocks, _ = parse_block_index(frame)
+        if name.startswith("linked 64") and not any(st for *_, st in blocks):
+            raise AssertionError("the linked frame has no stored block")
+        batch, starts, out_off = stage_token_chains(frame, blocks, header,
+                                                    window, dev, scan)
+        got = decode_token_chains(batch)
+        want, p_ms = _timed(torch, lambda: decode_token_chains_plain(batch))
+        plain_ms = p_ms if plain_ms is None else plain_ms
+        err = max(err, _compare(torch, f"token_decode_linked {name} "
+                                f"({batch.row_off.shape[0] - 1} chains, "
+                                f"{len(blocks)} rows)", got, want, tag, 8))
+        flat, ols = got[0].cpu().numpy(), got[1].cpu().numpy()
+        done = np.concatenate([[0], np.cumsum(ols)])[starts]
+        joined = np.concatenate([flat[out_off[c]: out_off[c] + done[c + 1]
+                                      - done[c]]
+                                 for c in range(len(starts) - 1)])
+        if joined.tobytes() != x.tobytes():
+            raise AssertionError(f"token_decode_linked {name}: the decoded "
+                                 "chains do not give the plaintext")
+        print(f"phase 8: token_decode_linked {name}: {len(frame)} B frame, "
+              f"plain {p_ms:.1f} ms, decodes to its {len(x)} B exactly "
+              f"{tag}")
+    header, blocks, _ = parse_block_index(default_frame)
+    main = stage_token_chains(default_frame, blocks, header, None, dev,
+                              True)[0]
+    mout = decode_token_chains(main)
+    ms = _cuda_ms(torch, lambda: decode_token_chains(main), 2)
+    # wire bytes, row flags, offsets and lengths in, decoded bytes out
+    res["token_decode_linked"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=_bound_ms(*main[:6], int(mout[1].sum()), mout[1]))
+    print(f"phase 8: token_decode_linked, the 64 MiB default frame (one "
+          f"chain, {len(blocks)} rows): kernel {ms:.3f} ms "
+          f"({len(corpus) / ms / 1e3:.1f} MB/s), plain {plain_ms:.1f} ms on "
+          f"the linked 64 KB frame ({len(linked)} B), bound "
+          f"{res['token_decode_linked']['bound_ms']:.4f} ms {tag}")
+
+    # -- the engine="pallas" main path -------------------------------------
+    cfg = FrameConfig(block_size=B, block_independence=True,
+                      content_checksum=True)
+    n = len(corpus)
+    frame = pt.compress_frame(corpus, cfg, engine="pallas", device=dev)
+    pt.decompress_frame(frame, engine="pallas", device=dev)   # warm-up
+    encode_blocks_pallas.launches = 0
+    decode_blocks_pallas.launches = 0
+    t_enc, t_dec = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame = pt.compress_frame(corpus, cfg, engine="pallas", device=dev)
+        t1 = time.perf_counter()
+        out = pt.decompress_frame(frame, engine="pallas", device=dev)
+        t2 = time.perf_counter()
+        t_enc.append(t1 - t0)
+        t_dec.append(t2 - t1)
+        if out.tobytes() != corpus.tobytes():
+            raise AssertionError("engine='pallas' 64 MiB round trip is not "
+                                 "exact")
+    res["greedy_encode"]["launches"] = encode_blocks_pallas.launches
+    res["token_decode"]["launches"] = decode_blocks_pallas.launches
+    for k in ("greedy_encode", "token_decode"):
+        if res[k]["launches"] < 1:
+            raise AssertionError(f"the engine='pallas' main path never "
+                                 f"launched {k}")
+    if frame.tobytes() != ref_frame.tobytes():
+        raise AssertionError("engine='pallas' frames differ between runs")
+    _other_engine_exact(pt, frame, corpus, dev, "split",
+                        what="engine='pallas' 64 MiB frame")
+    enc_s, dec_s = statistics.median(t_enc), statistics.median(t_dec)
+    print(f"phase 8: engine='pallas' 64 MiB frame (64 KB independent, "
+          f"content checksum), {len(frame)} B: round trip exact, the split "
+          f"engine decodes it exactly; greedy_encode launches "
+          f"{res['greedy_encode']['launches']}, token_decode launches "
+          f"{res['token_decode']['launches']} {tag}")
+    print(f"phase 8: engine='pallas': encode {n / enc_s / 1e6:.1f} MB/s, "
+          f"decode {n / dec_s / 1e6:.1f} MB/s (median of 3; enc {t_enc}, "
+          f"dec {t_dec} s) {tag}")
+    decode_token_chains.launches = 0
+    t0 = time.perf_counter()
+    out = pt.decompress_frame(default_frame, engine="pallas", device=dev)
+    dt = time.perf_counter() - t0
+    res["token_decode_linked"]["launches"] = decode_token_chains.launches
+    if out.tobytes() != corpus.tobytes():
+        raise AssertionError("engine='pallas' decode of the default frame "
+                             "differs")
+    if res["token_decode_linked"]["launches"] < 1:
+        raise AssertionError("the default frame's engine='pallas' decode "
+                             "never launched token_decode_linked")
+    print(f"phase 8: default frame (4 MB linked, split-made) decoded with "
+          f"engine='pallas': exact, {n / dt / 1e6:.1f} MB/s ({dt:.3f} s); "
+          f"token_decode_linked launches "
+          f"{res['token_decode_linked']['launches']} {tag}")
+    return res
 
 
 def main() -> int:
@@ -321,25 +678,20 @@ def main() -> int:
     dev = torch.device("cuda:0")
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    import divortio_lz4_tpu as lz4
-    if not lz4.NATIVE_AVAILABLE:
-        raise RuntimeError("divortio_lz4_tpu.NATIVE_AVAILABLE is False: the "
-                           "native host tier did not build (g++)")
     import divortio_lz4_tpu_torch as pt
-    from divortio_lz4_tpu_torch import _build
+    from divortio_lz4_tpu_torch import FrameConfig, _build
     from divortio_lz4_tpu_torch.ops.compact_decode import (
         decode_blocks_compact, decode_blocks_compact_plain)
-    from divortio_lz4_tpu.config import FrameConfig
     from bench import build_corpus
 
     t0 = time.perf_counter()
-    sources = ("compact_decode", "chain_decode")
-    with ThreadPoolExecutor(len(sources)) as ex:   # one nvcc per source
+    sources = CUDA_SOURCES + ("host_kernels",)
+    with ThreadPoolExecutor(len(sources)) as ex:   # one compiler per source
         list(ex.map(_build.library_path, sources))
     build_s = time.perf_counter() - t0
-    print(f"phase 1: built csrc/{{{','.join(sources)}}}.cu for sm_90a in "
-          f"{build_s:.2f} s {tag}")
-    for name in sources:
+    print(f"phase 1: built csrc/{{{','.join(CUDA_SOURCES)}}}.cu for sm_90a "
+          f"(nvcc) and csrc/host_kernels.cpp (g++) in {build_s:.2f} s {tag}")
+    for name in CUDA_SOURCES:
         for line in _build.build_log(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill")):
@@ -349,19 +701,18 @@ def main() -> int:
     corpus = build_corpus(64 * MIB, args.seed)
     cfg = FrameConfig(block_size=65536, block_independence=True,
                       content_checksum=True)
-    host_frame = np.asarray(lz4.compress(corpus, config=cfg))
+    ref_frame = pt.compress_frame(corpus, cfg, engine="pallas", device=dev)
     rng = np.random.default_rng(args.seed)
     d = np.array(corpus[3 * MIB: 3 * MIB + 32768])
-    dict_frame = np.asarray(lz4.compress(corpus[:4 * MIB], config=cfg,
-                                         dictionary=d))
-    dense = [np.asarray(lz4.compress_raw(rng.integers(0, 4, 65536)
-                                         .astype(np.uint8)))
-             for _ in range(32)]
-    cases = {
-        "main": _batch(_frame_entries(host_frame), None, dev),
-        "dense": _batch([(c, False) for c in dense], None, dev),
-        "dict": _batch(_frame_entries(dict_frame), d, dev),
-    }
+    dict_frame = pt.compress_frame(corpus[:4 * MIB], cfg, dictionary=d,
+                                   device=dev)
+    dense = rng.integers(0, 4, 32 * 65536).astype(np.uint8)
+    dense_frame = pt.compress_frame(dense, cfg, engine="pallas", device=dev)
+    entries = {"main": _frame_entries(ref_frame),
+               "dense": _frame_entries(dense_frame),
+               "dict": _frame_entries(dict_frame)}
+    cases = {name: _batch(e, d if name == "dict" else None, dev)
+             for name, e in entries.items()}
     # hostile: the dense batch with random words in row 5's records
     hb = cases["dense"][0]
     r0, r1 = int(hb.rec_off[5]), int(hb.rec_off[6])
@@ -398,7 +749,11 @@ def main() -> int:
         k_ms = _cuda_ms(torch, lambda: decode_blocks_compact(*args_), 5)
         p_ms = _cuda_ms(torch, lambda: decode_blocks_compact_plain(*args_),
                         1)
-        timing[name] = (k_ms, p_ms)
+        # wire bytes, records, offsets and lengths in (the dictionary once,
+        # not per row), decoded bytes out
+        timing[name] = (k_ms, p_ms, _bound_ms(
+            _wire_bytes(entries[name]), b.rec_words, b.rec_off, b.out_lens,
+            len(d) if b.hist is not None else None, int(b.out_lens.sum())))
         mb = int(b.out_lens.sum()) / 1e6
         print(f"phase 2: {name}: kernel {k_ms:.3f} ms ({mb / k_ms:.1f} "
               f"GB/s of output), plain {p_ms:.1f} ms {tag}")
@@ -422,16 +777,17 @@ def main() -> int:
     launches = decode_blocks_compact.launches
     if launches < 1:
         raise AssertionError("the main path never launched compact_decode")
-    if np.asarray(lz4.decompress(frame)).tobytes() != corpus_b:
-        raise AssertionError("host C++ decode of the port's frame differs")
+    _other_engine_exact(pt, frame, corpus, dev, "pallas",
+                        what="64 MiB split frame")
     if len(frame) >= len(corpus):
         raise AssertionError("the 64 MiB frame is not smaller than its input")
     n = len(corpus)
     enc_s, dec_s = statistics.median(t_enc), statistics.median(t_dec)
-    print(f"phase 3: 64 MiB frame, {len(frame)} B, ratio vs host encoder "
-          f"{len(frame) / len(host_frame):.4f} ({len(host_frame)} B); "
-          f"round trip exact, host-decodable; compact_decode launches "
-          f"{launches} {tag}")
+    print(f"phase 3: 64 MiB frame, {len(frame)} B, ratio vs the "
+          f"engine='pallas' frame (reference-identical, same 64 KB "
+          f"independent blocks) {len(frame) / len(ref_frame):.4f} "
+          f"({len(ref_frame)} B); round trip exact, engine='pallas' decodes "
+          f"it exactly; compact_decode launches {launches} {tag}")
     print(f"phase 3: encode {n / enc_s / 1e6:.1f} MB/s, decode "
           f"{n / dec_s / 1e6:.1f} MB/s, round trip "
           f"{n / (enc_s + dec_s) / 1e6:.1f} MB/s (median of 3; "
@@ -450,40 +806,61 @@ def main() -> int:
     for i, (f, o, x) in enumerate(zip(frames, outs4, datas)):
         if o.tobytes() != x.tobytes():
             raise AssertionError(f"in-flight frame {i} round trip differs")
-    if np.asarray(lz4.decompress(frames[15], dictionary=d)).tobytes() \
-            != datas[15].tobytes():
-        raise AssertionError("host decode of the dictionary frame differs")
+    _other_engine_exact(pt, frames[15], datas[15], dev, "pallas", d,
+                        "the dictionary frame")
     print(f"phase 4: 16 x 4 MiB frames (1 block-checksum, 1 dictionary) "
           f"exact; encode {n / (t1 - t0) / 1e6:.1f} MB/s, decode "
           f"{n / (t2 - t1) / 1e6:.1f} MB/s {tag}")
     peak = torch.cuda.max_memory_allocated() / MIB
     print(f"phase 4: peak device memory {peak:.0f} MiB {tag}")
 
-    chain, wire = _phase5(torch, dev, corpus, args.seed, tag)
-    chain_launches, wire_launches = _phase6(torch, pt, lz4, dev, corpus,
-                                            tag)
-    _phase7(torch, pt, lz4, dev, corpus, d, tag)
+    chain, wire = _phase5(torch, pt, dev, corpus, args.seed, tag)
+    default_frame, chain_launches, wire_launches = _phase6(
+        torch, pt, dev, corpus, tag)
+    _phase7(torch, pt, dev, corpus, d, tag)
+    pallas = _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
+                     default_frame, args.seed, tag)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    k_ms, p_ms = timing["main"]
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "divortio_lz4_tpu"))
+    if bad:
+        raise AssertionError(f"the JAX package or jax was imported: {bad}")
+    k_ms, p_ms, b_ms = timing["main"]
     src = "divortio_lz4_tpu_torch/csrc/"
-    print(json.dumps({"kernels": [
-        {"name": "compact_decode", "route": "cuda",
-         "source": src + "compact_decode.cu",
-         "replaces": "divortio_lz4_tpu/ops/pallas_split_decode.py:689",
-         "launches": launches, "max_abs_err": max_err,
-         "ms": k_ms, "plain_ms": p_ms},
-        {"name": "chain_decode", "route": "cuda",
-         "source": src + "chain_decode.cu",
-         "replaces": "divortio_lz4_tpu/ops/wave_decode.py:60",
-         "launches": chain_launches, "max_abs_err": chain[0],
-         "ms": chain[1], "plain_ms": chain[2]},
-        {"name": "wire_decode", "route": "cuda",
-         "source": src + "chain_decode.cu",
-         "replaces": "divortio_lz4_tpu/ops/pallas_split_decode.py:565",
-         "launches": wire_launches, "max_abs_err": wire[0],
-         "ms": wire[1], "plain_ms": wire[2]}]}))
+    kernels = [
+        dict(name="compact_decode", source="compact_decode.cu",
+             replaces="divortio_lz4_tpu/ops/pallas_split_decode.py:689",
+             launches=launches, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+             bound_ms=b_ms),
+        dict(name="chain_decode", source="chain_decode.cu",
+             replaces="divortio_lz4_tpu/ops/wave_decode.py:60",
+             launches=chain_launches, max_abs_err=chain[0], ms=chain[1],
+             plain_ms=chain[2], bound_ms=chain[3]),
+        dict(name="wire_decode", source="chain_decode.cu",
+             replaces="divortio_lz4_tpu/ops/pallas_split_decode.py:565",
+             launches=wire_launches, max_abs_err=wire[0], ms=wire[1],
+             plain_ms=wire[2], bound_ms=wire[3]),
+        dict(name="greedy_encode", source="greedy_encode.cu",
+             replaces="divortio_lz4_tpu/ops/pallas_encode.py:66",
+             **pallas["greedy_encode"]),
+        dict(name="token_decode", source="token_decode.cu",
+             replaces="divortio_lz4_tpu/ops/pallas_decode.py:233",
+             **pallas["token_decode"]),
+        dict(name="token_decode_linked", source="token_decode.cu",
+             replaces="divortio_lz4_tpu/ops/pallas_decode.py:410",
+             **pallas["token_decode_linked"]),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        # no PyTorch call computes an LZ4 encode or decode: library_ms null
+        k.update(route="cuda", source=src + k["source"], bound_by="bytes",
+                 library_ms=None)
+        if k["launches"] < 1 or k["max_abs_err"] != 0:
+            raise AssertionError(f"{k['name']}: launches {k['launches']}, "
+                                 f"max_abs_err {k['max_abs_err']}")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys}
+                                  for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

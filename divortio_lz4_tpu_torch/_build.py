@@ -1,11 +1,15 @@
-"""Build the port's CUDA sources with nvcc at first use; load them with ctypes.
+"""Build the port's native sources at first use; load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
-its own into ``_build/lib<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here includes PyTorch's headers: a plain C interface builds
-in seconds. The build runs when a kernel is first launched, never at
-import, so machines without the CUDA toolkit import the package fine.
+Each ``csrc/<name>.cu`` (a CUDA kernel, built by nvcc) or
+``csrc/<name>.cpp`` (host C++, built by g++) exposes plain C entry points
+and is compiled on its own into ``_build/lib<name>-<hash>.so``, where the
+hash covers the source and the flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing here includes PyTorch's headers: a plain C
+interface builds in seconds. A build writes a temporary file and renames it
+into place, so processes that build the same library at once (test
+workers) never load a half-written one. The build runs when a library is
+first used, never at import, so machines without the CUDA toolkit import
+the package fine.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # kernels; -Xptxas -v writes registers/shared memory/spills to the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Portable flags: a library built on one host stays loadable on another.
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
 
 def _nvcc() -> str:
@@ -38,27 +44,45 @@ def _nvcc() -> str:
                        "the CUDA toolkit (set CUDA_HOME)")
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the port's host library "
+                           "(csrc/host_kernels.cpp) builds with g++")
+    return gxx
+
+
+def _source(name: str) -> tuple[str, list]:
+    """(source path, compiler command without -o) for csrc/<name>.*"""
+    cu = os.path.join(CSRC_DIR, name + ".cu")
+    if os.path.exists(cu):
+        return cu, [_nvcc(), *NVCC_FLAGS]
+    cpp = os.path.join(CSRC_DIR, name + ".cpp")
+    if os.path.exists(cpp):
+        return cpp, [_gxx(), *GXX_FLAGS]
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
 def library_path(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu (built if missing)."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
+    """Path of the built library for csrc/<name>.cu or .cpp (built if
+    missing)."""
+    src, cmd = _source(name)
     with open(src, "rb") as f:
         text = f.read()
     digest = hashlib.sha256(
-        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(cmd[1:]).encode()).hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build to a temp file and rename: a concurrent loader never sees a
-    # half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                             capture_output=True, text=True, timeout=600)
+        res = subprocess.run([*cmd, "-o", tmp, src], capture_output=True,
+                             text=True, timeout=600)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}"
-                               f"{res.stderr}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed on "
+                               f"{src}:\n{res.stdout}{res.stderr}")
         with open(lib[:-3] + ".log", "w") as f:
             f.write(res.stdout + res.stderr)
         os.replace(tmp, lib)
@@ -69,12 +93,13 @@ def library_path(name: str) -> str:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas register and shared-memory report) for *name*."""
+    """The compiler's output for *name* (for a CUDA source, ptxas's
+    register, shared-memory and spill report)."""
     with open(library_path(name)[:-3] + ".log") as f:
         return f.read()
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load csrc/<name>.cu."""
+    """Build (at first use) and load csrc/<name>.cu or .cpp."""
     return ctypes.CDLL(library_path(name))

@@ -1,9 +1,9 @@
 """Device resolution for the port's public entry points.
 
-Every public function takes an explicit ``device``; nothing picks one on
-the caller's behalf. ``"cuda"`` on a machine without a usable GPU raises
-instead of carrying on on the CPU, so a measurement can never silently run
-on the wrong device.
+Every public function takes ``device``, ``"cuda"`` unless the caller asks
+for the CPU; nothing picks one on the caller's behalf. ``"cuda"`` on a
+machine without a usable GPU raises instead of carrying on on the CPU, so a
+measurement can never silently run on the wrong device.
 """
 
 from __future__ import annotations

@@ -1,0 +1,418 @@
+// Host C++ functions of the port, plain C entry points for ctypes.
+//
+// Copied from divortio_lz4_tpu/native/lz4_kernels.cpp, with the helpers
+// they need and nothing else; the semantics and error codes are unchanged:
+//   lz4t_xxhash32            (lz4_kernels.cpp:46)   xxHash32 of a buffer
+//   lz4t_scan_pieces         (:714)  sequence-boundary piece scan
+//   lz4t_parse_records2      (:896)  wire-direct record parse
+//   lz4t_chain_serialize16   (:1218) greedy select + serialize over a u16
+//   lz4t_chain_serialize16m  (:1225) chain, plain and with splice meta
+// Built with g++ at first use by divortio_lz4_tpu_torch/_build.py.
+
+#include <cstdint>
+#include <cstring>
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// xxHash32
+// ---------------------------------------------------------------------------
+
+static const uint32_t P1 = 2654435761u;
+static const uint32_t P2 = 2246822519u;
+static const uint32_t P3 = 3266489917u;
+static const uint32_t P4 = 668265263u;
+static const uint32_t P5 = 374761393u;
+
+static inline uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+static inline uint32_t xxh_round(uint32_t acc, uint32_t lane) {
+  acc += lane * P2;
+  return rotl32(acc, 13) * P1;
+}
+
+static inline uint32_t read32(const uint8_t* p) {
+  uint32_t v;
+  std::memcpy(&v, p, 4);  // little-endian hosts only (x86/ARM LE)
+  return v;
+}
+
+uint32_t lz4t_xxhash32(const uint8_t* buf, int64_t len, uint32_t seed) {
+  const uint8_t* p = buf;
+  const uint8_t* end = buf + len;
+  uint32_t h32;
+  if (len >= 16) {
+    const uint8_t* limit = end - 16;
+    uint32_t v1 = seed + P1 + P2;
+    uint32_t v2 = seed + P2;
+    uint32_t v3 = seed;
+    uint32_t v4 = seed - P1;
+    do {
+      v1 = xxh_round(v1, read32(p));
+      v2 = xxh_round(v2, read32(p + 4));
+      v3 = xxh_round(v3, read32(p + 8));
+      v4 = xxh_round(v4, read32(p + 12));
+      p += 16;
+    } while (p <= limit);
+    h32 = rotl32(v1, 1) + rotl32(v2, 7) + rotl32(v3, 12) + rotl32(v4, 18);
+  } else {
+    h32 = seed + P5;
+  }
+  h32 += (uint32_t)len;
+  while (p + 4 <= end) {
+    h32 += read32(p) * P3;
+    h32 = rotl32(h32, 17) * P4;
+    p += 4;
+  }
+  while (p < end) {
+    h32 += (*p) * P5;
+    h32 = rotl32(h32, 11) * P1;
+    p += 1;
+  }
+  h32 ^= h32 >> 15;
+  h32 *= P2;
+  h32 ^= h32 >> 13;
+  h32 *= P3;
+  h32 ^= h32 >> 16;
+  return h32;
+}
+
+// ---------------------------------------------------------------------------
+// LZ4 block constants and error codes
+// ---------------------------------------------------------------------------
+
+static const int MIN_MATCH = 4;
+static const int LAST_LITERALS = 5;
+static const int MF_LIMIT = 12;
+
+// Translated to "LZ4: ..." ValueErrors by host.py.
+static const int64_t ERR_OUTPUT_SMALL = -1;   // "Output Buffer Too Small"
+static const int64_t ERR_MALFORMED = -2;      // "Malformed Input"
+static const int64_t ERR_OFFSET0 = -3;        // "Invalid Offset 0"
+static const int64_t ERR_DICT_OOB = -4;       // "Dictionary Offset Out of Bounds"
+
+// ---------------------------------------------------------------------------
+// Piece scan
+// ---------------------------------------------------------------------------
+
+// Split a block's sequence stream at sequence boundaries into pieces each
+// producing >= target output bytes (except the last). O(wire) length
+// arithmetic only. Returns the piece count, ERR_MALFORMED on truncated
+// length runs, ERR_OFFSET0 on zero offsets, or -6 when max_pieces would
+// overflow.
+int64_t lz4t_scan_pieces(const uint8_t* src, int64_t src_len, int64_t target,
+                         int64_t* wire_off, int64_t* wire_len,
+                         int64_t* out_len, int64_t max_pieces) {
+  int64_t p = 0, o = 0, ps = 0, po = 0, np_ = 0;
+  while (p < src_len) {
+    uint32_t tok = src[p++];
+    int64_t lit = tok >> 4;
+    if (lit == 15) {
+      uint32_t v;
+      do {
+        if (p >= src_len) return ERR_MALFORMED;
+        v = src[p++];
+        lit += v;
+      } while (v == 255);
+    }
+    if (p + lit > src_len) return ERR_MALFORMED;
+    p += lit;
+    o += lit;
+    if (p >= src_len) break;  // trailing-literals sequence ends the stream
+    if (p + 2 > src_len) return ERR_MALFORMED;
+    uint32_t off = (uint32_t)src[p] | ((uint32_t)src[p + 1] << 8);
+    if (off == 0) return ERR_OFFSET0;
+    p += 2;
+    int64_t ml = tok & 15;
+    if (ml == 15) {
+      uint32_t v;
+      do {
+        if (p >= src_len) return ERR_MALFORMED;
+        v = src[p++];
+        ml += v;
+      } while (v == 255);
+    }
+    o += ml + 4;
+    if (o - po >= target && p < src_len) {
+      if (np_ >= max_pieces - 1) return -6;
+      wire_off[np_] = ps;
+      wire_len[np_] = p - ps;
+      out_len[np_] = o - po;
+      np_++;
+      ps = p;
+      po = o;
+    }
+  }
+  wire_off[np_] = ps;
+  wire_len[np_] = p - ps;
+  out_len[np_] = o - po;
+  return np_ + 1;
+}
+
+// ---------------------------------------------------------------------------
+// Wire-direct record parse
+// ---------------------------------------------------------------------------
+
+// Each record covers up to 128 contiguous output bytes: a literal slice
+// copied from the wire plus, optionally, a match copy from prior output:
+//   recs[2k]   = src  (wire byte offset of the literal slice)
+//   recs[2k+1] = offset | ll<<16 | ml<<24      (ll, ml <= 128, ll+ml <= 128)
+// The record's output start is the running sum of (ll+ml). A record's match
+// source [dst+ll-offset, dst+ll-offset+ml) is fully written when it runs:
+// far matches (offset >= 128) split into <= 128-byte chunks whose first
+// absorbs the literal tail; overlap matches (offset < 128) emit literal
+// records then a log-doubling chain (off, 2*off, ...). Validation follows
+// the reference decoder's error taxonomy. Returns the record count, or a
+// negative error code; *out_len_out = decoded size.
+int64_t lz4t_parse_records2(const uint8_t* src, int64_t src_len,
+                            int64_t out_cap, uint32_t* recs, int64_t rec_cap,
+                            int64_t dict_len, int64_t* out_len_out) {
+  int64_t p = 0, o = 0, nrec = 0;
+  while (p < src_len) {
+    uint32_t token = src[p++];
+    int64_t lit_len = token >> 4;
+    if (lit_len == 15) {
+      uint32_t b;
+      do {
+        if (p >= src_len) return ERR_MALFORMED;
+        b = src[p++];
+        lit_len += b;
+      } while (b == 255);
+    }
+    if (o + lit_len > out_cap) return ERR_OUTPUT_SMALL;
+    if (p + lit_len > src_len) return ERR_MALFORMED;
+    int64_t lp = p;  // literal slice's wire position
+    o += lit_len;
+    p += lit_len;
+    if (p >= src_len) {
+      // trailing-literals sequence: pure literal records
+      while (lit_len > 0) {
+        int64_t take = lit_len < 128 ? lit_len : 128;
+        if (nrec >= rec_cap) return -6;
+        recs[2 * nrec] = (uint32_t)lp;
+        recs[2 * nrec + 1] = 1u | ((uint32_t)take << 16);
+        nrec++;
+        lp += take;
+        lit_len -= take;
+      }
+      break;
+    }
+
+    if (p + 2 > src_len) return ERR_MALFORMED;
+    int64_t offset = src[p] | (src[p + 1] << 8);
+    p += 2;
+    if (offset == 0) return ERR_OFFSET0;
+    if (offset > o + dict_len) return ERR_DICT_OOB;
+
+    int64_t match_len = token & 0x0F;
+    if (match_len == 15) {
+      uint32_t b;
+      do {
+        if (p >= src_len) return ERR_MALFORMED;
+        b = src[p++];
+        match_len += b;
+      } while (b == 255);
+    }
+    match_len += MIN_MATCH;
+    if (o + match_len > out_cap) return ERR_OUTPUT_SMALL;
+    o += match_len;
+
+    int64_t ll = lit_len, ml = match_len;
+    if (nrec + (ll >> 7) + (ml >> 7) + 10 > rec_cap) return -6;
+    if (ll + ml <= 128 && offset >= ll + ml) {
+      // the common case: one combined record per sequence
+      recs[2 * nrec] = (uint32_t)lp;
+      recs[2 * nrec + 1] =
+          (uint32_t)offset | ((uint32_t)ll << 16) | ((uint32_t)ml << 24);
+      nrec++;
+      continue;
+    }
+    if (offset >= 128) {
+      // literal chunks; the last (<= 128 B) absorbs the match head —
+      // offset >= 128 >= ll'+take keeps the source fully prior
+      while (ll > 128) {
+        recs[2 * nrec] = (uint32_t)lp;
+        recs[2 * nrec + 1] = 1u | (128u << 16);
+        nrec++;
+        lp += 128;
+        ll -= 128;
+      }
+      int64_t take = ml < 128 - ll ? ml : 128 - ll;
+      recs[2 * nrec] = (uint32_t)lp;
+      recs[2 * nrec + 1] =
+          (uint32_t)offset | ((uint32_t)ll << 16) | ((uint32_t)take << 24);
+      nrec++;
+      ml -= take;
+      while (ml > 0) {
+        take = ml < 128 ? ml : 128;
+        recs[2 * nrec] = 0;
+        recs[2 * nrec + 1] = (uint32_t)offset | ((uint32_t)take << 24);
+        nrec++;
+        ml -= take;
+      }
+      continue;
+    }
+    // overlap match (offset < 128): literal records, then a doubling chain
+    while (ll > 0) {
+      int64_t take = ll < 128 ? ll : 128;
+      recs[2 * nrec] = (uint32_t)lp;
+      recs[2 * nrec + 1] = 1u | ((uint32_t)take << 16);
+      nrec++;
+      lp += take;
+      ll -= take;
+    }
+    int64_t off = offset;
+    while (off < 128 && ml > 0) {
+      int64_t take = ml < off ? ml : off;
+      recs[2 * nrec] = 0;
+      recs[2 * nrec + 1] = (uint32_t)off | ((uint32_t)take << 24);
+      nrec++;
+      ml -= take;
+      off <<= 1;
+    }
+    while (ml > 0) {
+      int64_t take = ml < 128 ? ml : 128;
+      recs[2 * nrec] = 0;
+      recs[2 * nrec + 1] = (uint32_t)off | ((uint32_t)take << 24);
+      nrec++;
+      ml -= take;
+    }
+  }
+  *out_len_out = o;
+  return nrec;
+}
+
+// ---------------------------------------------------------------------------
+// Chain select + serialize
+// ---------------------------------------------------------------------------
+
+// Greedy selection, exact extension and serialization over a device-built
+// u16 match distance per payload position (0 = no candidate). The next
+// matchable position is found by scanning for the next nonzero distance; a
+// claimed match is verified on its first 4 bytes (the hashed chain may
+// collide), then extended exactly up to src_len - LAST_LITERALS. work
+// points at [history | payload]. meta (optional, the big-block segment
+// splicer's contract): trailing-token position, trailing literal count,
+// last match sequence's stream offset (-1 if none), its payload-relative
+// output anchor (-1). Returns bytes written.
+static inline int64_t chain_ser16_core(const uint8_t* work,
+                                       int64_t hist_len, int64_t src_len,
+                                       const uint16_t* dist16, uint8_t* out,
+                                       int64_t* meta) {
+  const int64_t mf_limit = src_len - MF_LIMIT;
+  const int64_t match_limit = src_len - LAST_LITERALS;
+  const uint8_t* pay = work + hist_len;
+  int64_t o = 0, d = 0;
+  int64_t last_d = -1, last_anchor = -1;
+  if (src_len > 0 && mf_limit > 0) {
+    int64_t m = 0;
+    for (;;) {
+      // next matchable position >= m (dist16 has >= src_len entries,
+      // zero beyond mf_limit, so the strided reads never pass cap):
+      // a 32-byte stride first, then a ctz jump to the first nonzero lane.
+      while (m + 16 <= mf_limit) {
+        uint64_t v0, v1, v2, v3;
+        std::memcpy(&v0, dist16 + m, 8);
+        std::memcpy(&v1, dist16 + m + 4, 8);
+        std::memcpy(&v2, dist16 + m + 8, 8);
+        std::memcpy(&v3, dist16 + m + 12, 8);
+        if (v0 | v1 | v2 | v3) {
+          if (v0) m += __builtin_ctzll(v0) >> 4;
+          else if (v1) m += 4 + (__builtin_ctzll(v1) >> 4);
+          else if (v2) m += 8 + (__builtin_ctzll(v2) >> 4);
+          else m += 12 + (__builtin_ctzll(v3) >> 4);
+          break;
+        }
+        m += 16;
+      }
+      while (m + 4 <= mf_limit) {
+        uint64_t v;
+        std::memcpy(&v, dist16 + m, 8);
+        if (v) { m += __builtin_ctzll(v) >> 4; break; }
+        m += 4;
+      }
+      while (m < mf_limit && dist16[m] == 0) m++;
+      if (m >= mf_limit) break;
+      const int64_t dist = dist16[m];
+
+      // verify the claimed match (hashed-chain collision guard)
+      {
+        uint32_t wa, wb;
+        std::memcpy(&wa, pay + m, 4);
+        std::memcpy(&wb, pay + m - dist, 4);
+        if (wa != wb) { m++; continue; }
+      }
+
+      // exact extension (first MIN_MATCH bytes verified above)
+      int64_t len = MIN_MATCH;
+      const uint8_t* a = pay + m;
+      const uint8_t* b = a - dist;
+      const int64_t lim = match_limit - m;
+      while (len + 8 <= lim) {
+        uint64_t x, y;
+        std::memcpy(&x, a + len, 8);
+        std::memcpy(&y, b + len, 8);
+        if (x != y) {
+          len += __builtin_ctzll(x ^ y) >> 3;
+          goto emit;
+        }
+        len += 8;
+      }
+      while (len < lim && a[len] == b[len]) len++;
+    emit:;
+      last_d = d;
+      last_anchor = o;
+      int64_t lit = m - o;
+      int64_t mcode = len - MIN_MATCH;
+      out[d++] = (uint8_t)((lit < 15 ? lit : 15) << 4
+                           | (mcode < 15 ? mcode : 15));
+      if (lit >= 15) {
+        int64_t rem = lit - 15;
+        while (rem >= 255) { out[d++] = 255; rem -= 255; }
+        out[d++] = (uint8_t)rem;
+      }
+      std::memcpy(out + d, pay + o, (size_t)lit);
+      d += lit;
+      out[d++] = (uint8_t)(dist & 0xFF);
+      out[d++] = (uint8_t)(dist >> 8);
+      if (mcode >= 15) {
+        int64_t rem = mcode - 15;
+        while (rem >= 255) { out[d++] = 255; rem -= 255; }
+        out[d++] = (uint8_t)rem;
+      }
+      o = m + len;
+      m = o;
+    }
+  }
+  int64_t lit = src_len - o;
+  if (meta) {
+    meta[0] = d;        // trailing-token position (0 => all-literal)
+    meta[1] = lit;      // trailing literal count
+    meta[2] = last_d;
+    meta[3] = last_anchor;
+  }
+  out[d++] = (uint8_t)((lit < 15 ? lit : 15) << 4);
+  if (lit >= 15) {
+    int64_t rem = lit - 15;
+    while (rem >= 255) { out[d++] = 255; rem -= 255; }
+    out[d++] = (uint8_t)rem;
+  }
+  std::memcpy(out + d, pay + o, (size_t)lit);
+  return d + lit;
+}
+
+int64_t lz4t_chain_serialize16(const uint8_t* work, int64_t hist_len,
+                               int64_t src_len, const uint16_t* dist16,
+                               uint8_t* out) {
+  return chain_ser16_core(work, hist_len, src_len, dist16, out, nullptr);
+}
+
+int64_t lz4t_chain_serialize16m(const uint8_t* work, int64_t hist_len,
+                                int64_t src_len, const uint16_t* dist16,
+                                uint8_t* out, int64_t* meta) {
+  return chain_ser16_core(work, hist_len, src_len, dist16, out, meta);
+}
+
+}  // extern "C"

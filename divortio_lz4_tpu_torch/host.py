@@ -1,0 +1,134 @@
+"""ctypes bindings of the port's host library, ``csrc/host_kernels.cpp``.
+
+The wrappers and the error table are copies of
+``divortio_lz4_tpu/native/__init__.py`` (``xxhash32_native``,
+``scan_pieces_native``, ``parse_records2_native``,
+``chain_serialize16_native``, ``chain_serialize16_meta_native``). The
+library is built with g++ at its first use (``_build.py``), never at
+import. Every function validates its buffers in Python before passing
+pointers, and raises "LZ4: ..." ValueErrors on the C error codes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+
+from ._build import load_library
+
+_ERRORS = {
+    -1: "LZ4: Output Buffer Too Small",
+    -2: "LZ4: Malformed Input",
+    -3: "LZ4: Invalid Offset 0",
+    -4: "LZ4: Dictionary Offset Out of Bounds",
+    -5: "LZ4: Block Checksum Error",
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load_library("host_kernels")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.lz4t_xxhash32.restype = ctypes.c_uint32
+    lib.lz4t_xxhash32.argtypes = [p, i64, ctypes.c_uint32]
+    lib.lz4t_scan_pieces.restype = i64
+    lib.lz4t_scan_pieces.argtypes = [p, i64, i64, p, p, p, i64]
+    lib.lz4t_parse_records2.restype = i64
+    lib.lz4t_parse_records2.argtypes = [p, i64, i64, p, i64, i64,
+                                        ctypes.POINTER(i64)]
+    lib.lz4t_chain_serialize16.restype = i64
+    lib.lz4t_chain_serialize16.argtypes = [p, i64, i64, p, p]
+    lib.lz4t_chain_serialize16m.restype = i64
+    lib.lz4t_chain_serialize16m.argtypes = [p, i64, i64, p, p,
+                                            ctypes.POINTER(i64)]
+    return lib
+
+
+def _ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def xxhash32_native(buf: np.ndarray, seed: int = 0) -> int:
+    buf = np.ascontiguousarray(buf)
+    return int(_lib().lz4t_xxhash32(_ptr(buf), buf.nbytes,
+                                    seed & 0xFFFFFFFF))
+
+
+def scan_pieces_native(src: np.ndarray, target: int):
+    """Split a block's sequence stream at sequence boundaries into pieces of
+    >= target output bytes (see lz4t_scan_pieces). Returns int64 arrays
+    (wire_off, wire_len, out_len); raises the host error taxonomy on
+    malformed streams."""
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    n = len(src)
+    # Every piece but the last outputs >= target >= 4 bytes and costs >= 3
+    # wire bytes, so n//3 + 2 bounds the count.
+    cap = n // 3 + 2
+    wo = np.empty(cap, np.int64)
+    wl = np.empty(cap, np.int64)
+    ol = np.empty(cap, np.int64)
+    rc = int(_lib().lz4t_scan_pieces(_ptr(src), n, target,
+                                     _ptr(wo), _ptr(wl), _ptr(ol), cap))
+    if rc < 0:
+        raise ValueError(_ERRORS.get(rc, "LZ4: Malformed Input"))
+    return wo[:rc], wl[:rc], ol[:rc]
+
+
+def parse_records2_native(src: np.ndarray, out_cap: int, dict_len: int = 0):
+    """Wire-direct record parse (see lz4t_parse_records2). Returns (recs
+    u32[nrec, 2], out_len), recs[k] = (src, offset | ll<<16 | ml<<24), the
+    record's output position being the running sum of (ll+ml). Raises the
+    host error taxonomy on malformed streams."""
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    n = len(src)
+    # <= 1 combined + literal chunks + 7 doubling + far chunks per sequence
+    # (>= 3 wire bytes each); full 128-byte chunks are also bounded by
+    # out_cap // 128 overall.
+    cap = (n // 3 + 1) * 9 + out_cap // 128 + 8
+    recs = np.empty((cap, 2), np.uint32)
+    out_len = ctypes.c_int64(0)
+    rc = int(_lib().lz4t_parse_records2(
+        _ptr(src), n, out_cap, _ptr(recs), cap, dict_len,
+        ctypes.byref(out_len)))
+    if rc < 0:
+        raise ValueError(_ERRORS.get(rc, "LZ4: Malformed Input"))
+    return recs[:rc], int(out_len.value)
+
+
+def _check_serialize(work, hist_len, src_len, dist16, out):
+    if work.dtype != np.uint8 or not work.flags.c_contiguous:
+        raise ValueError("work must be a contiguous uint8 array")
+    if dist16.dtype != np.uint16 or not dist16.flags.c_contiguous:
+        raise ValueError("dist16 must be a contiguous uint16 array")
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("out must be a contiguous uint8 array")
+    if len(work) < hist_len + src_len + 8 or len(dist16) < src_len:
+        raise ValueError("work needs 8 readable bytes past hist_len + "
+                         "src_len, and dist16 src_len entries")
+    if len(out) < src_len + src_len // 255 + 16:
+        raise ValueError("out is smaller than block_bound(src_len)")
+
+
+def chain_serialize16_native(work: np.ndarray, hist_len: int, src_len: int,
+                             dist16: np.ndarray, out: np.ndarray) -> int:
+    """Greedy select + exact extension + serialize over a u16 distance
+    chain (see lz4t_chain_serialize16). Returns bytes written."""
+    _check_serialize(work, hist_len, src_len, dist16, out)
+    return int(_lib().lz4t_chain_serialize16(
+        _ptr(work), hist_len, src_len, _ptr(dist16), _ptr(out)))
+
+
+def chain_serialize16_meta_native(work: np.ndarray, hist_len: int,
+                                  src_len: int, dist16: np.ndarray,
+                                  out: np.ndarray):
+    """chain_serialize16_native plus the big-block splicer's meta lanes
+    (trailing-token position, trailing literal count, last match stream
+    offset or -1, last match output anchor or -1). Returns (bytes written,
+    meta i64[4])."""
+    _check_serialize(work, hist_len, src_len, dist16, out)
+    meta = (ctypes.c_int64 * 4)()
+    n = int(_lib().lz4t_chain_serialize16m(
+        _ptr(work), hist_len, src_len, _ptr(dist16), _ptr(out), meta))
+    return n, np.array(meta[:], np.int64)

@@ -1,0 +1,220 @@
+"""Reference-identical greedy block encode: the CUDA kernel's wrapper and its
+plain version.
+
+``encode_blocks_pallas`` is the port of the TPU kernel ``_make_kernel`` of
+``divortio_lz4_tpu/ops/pallas_encode.py:66`` (run by ``encode_blocks_pallas``
+at ``:272``): the reference encoder's greedy hash-table scan, so each block's
+bytes equal the host C++ encoder's. On a CUDA tensor it launches
+``csrc/greedy_encode.cu`` (built by nvcc at first use) or raises; on a CPU
+tensor it runs ``encode_blocks_pallas_plain``, the same function in plain
+PyTorch, which the CPU tests use and ``chip_smoke.py`` holds the kernel
+against.
+
+Contract (both versions): ``work`` u8[nb, B] holds one block per row (its
+first ``lens[b]`` bytes); the result is ``(out u8[nb, out_width(B)],
+out_lens i64[nb])``, ``out[b, :out_lens[b]]`` the block's LZ4 stream and the
+rest of the row zero. An empty row encodes to nothing. The TPU kernel took
+the rows widened to i32 words and wrote ``out_len`` into its last row; both
+are Mosaic layouts and are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .._build import load_library
+from ..constants import (HASH_MASK, HASH_MULTIPLIER, HASH_SHIFT,
+                         LAST_LITERALS, MF_LIMIT, MIN_MATCH, SKIP_TRIGGER,
+                         WINDOW_SIZE, block_bound)
+from .hybrid_encode import _mul32
+
+EXT_STEP = 256      # bytes the plain version compares per extension step
+CHECK_EVERY = 32    # plain probe steps between checks for a live row
+
+
+def out_width(block_size: int) -> int:
+    """Row width of the encoded output: block_bound(block_size)."""
+    return block_bound(block_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = load_library("greedy_encode").lz4t_greedy_encode
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [p, i64, i64, p, i64, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(work, lens, block_size):
+    if work.dtype != torch.uint8 or work.dim() != 2 \
+            or not work.is_contiguous():
+        raise ValueError("work must be a contiguous u8[nb, block_size]")
+    if work.shape[1] != block_size or block_size < 1:
+        raise ValueError(f"work rows of {work.shape[1]} bytes do not match "
+                         f"block_size={block_size}")
+    if (lens.dtype != torch.int64 or tuple(lens.shape) != (work.shape[0],)
+            or not lens.is_contiguous()):
+        raise ValueError("lens must be a contiguous i64[nb]")
+    if lens.device != work.device:
+        raise ValueError("all inputs must be on one device")
+
+
+def encode_blocks_pallas(work: torch.Tensor, lens: torch.Tensor,
+                         block_size: int):
+    """Encode a batch of independent blocks with the reference's greedy
+    scan. Returns (out u8[nb, out_width(block_size)], out_lens i64[nb]) on
+    the inputs' device. On CUDA the kernel is queued on the current stream
+    and nothing synchronises; ``launches`` counts those launches."""
+    _check(work, lens, block_size)
+    if work.device.type == "cpu":
+        return encode_blocks_pallas_plain(work, lens, block_size)
+    if work.device.type != "cuda":
+        raise ValueError(f"no greedy encode for device {work.device}")
+    nb = work.shape[0]
+    ow = out_width(block_size)
+    out = torch.empty((nb, ow), dtype=torch.uint8, device=work.device)
+    out_lens = torch.empty(nb, dtype=torch.int64, device=work.device)
+    if nb == 0:
+        return out, out_lens
+    fn = _kernel()
+    with torch.cuda.device(work.device):
+        stream = torch.cuda.current_stream(work.device).cuda_stream
+        rc = fn(work.data_ptr(), nb, block_size, lens.data_ptr(), ow,
+                out.data_ptr(), out_lens.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"greedy_encode kernel launch failed: "
+                           f"cudaError {rc}")
+    encode_blocks_pallas.launches += 1
+    return out, out_lens
+
+
+encode_blocks_pallas.launches = 0
+
+
+def _ext_count(v: torch.Tensor) -> torch.Tensor:
+    """Bytes of the 0xFF-run length extension of a nibble value v."""
+    return torch.where(v >= 15, 1 + (v - 15).clamp(min=0) // 255, 0)
+
+
+def _expand(n: torch.Tensor):
+    """(owner, j): for each i < len(n), the pairs (i, 0..n[i]-1)."""
+    owner = torch.repeat_interleave(torch.arange(len(n), device=n.device), n)
+    j = torch.arange(len(owner), device=n.device) \
+        - (torch.cumsum(n, 0) - n)[owner]
+    return owner, j
+
+
+def encode_blocks_pallas_plain(work: torch.Tensor, lens: torch.Tensor,
+                               block_size: int):
+    """encode_blocks_pallas in plain PyTorch (any device): one torch step
+    per probe, batched over rows, recording each row's hits; then one
+    vectorized pass writes every sequence. u32 arithmetic runs in int64
+    masked to 32 bits (``_mul32``)."""
+    _check(work, lens, block_size)
+    dev = work.device
+    nb, B = work.shape
+    ow = out_width(B)
+    src_len = lens.clamp(0, B)
+    byts = torch.cat([work.to(torch.int64),
+                      torch.zeros((nb, 3), dtype=torch.int64, device=dev)],
+                     1)
+    words = byts[:, :B] | (byts[:, 1:B + 1] << 8) \
+        | (byts[:, 2:B + 2] << 16) | (byts[:, 3:B + 3] << 24)
+    hashes = (_mul32(words, HASH_MULTIPLIER) >> HASH_SHIFT) & HASH_MASK
+    table = torch.zeros((nb, HASH_MASK + 1), dtype=torch.int64, device=dev)
+    rows = torch.arange(nb, device=dev)
+    mf_limit = src_len - MF_LIMIT
+    match_limit = src_len - LAST_LITERALS
+    fresh = (1 << SKIP_TRIGGER) + 3
+    s = torch.zeros(nb, dtype=torch.int64, device=dev)
+    anchor = torch.zeros_like(s)
+    search = torch.full_like(s, fresh)
+    t = torch.arange(EXT_STEP, device=dev)
+    hits = []          # per probe step: (hit, anchor, lit_len, offset, mlen)
+    step = 0
+    while nb and (step % CHECK_EVERY or bool((s < mf_limit).any())):
+        step += 1
+        live = s < mf_limit
+        sc = s.clamp(0, B - 1)
+        h = hashes[rows, sc]
+        cand = table[rows, h] - 1
+        table[rows, h] = torch.where(live, s + 1, cand + 1)
+        cc = cand.clamp(min=0)
+        hit = live & (cand >= 0) & (s != cand) & (s - cand < WINDOW_SIZE) \
+            & (words[rows, cc] == words[rows, sc])
+        k = torch.zeros_like(s)
+        done = ~hit
+        while not bool(done.all()):
+            pos = (s + MIN_MATCH + k)[:, None] + t
+            a = byts[rows[:, None], pos.clamp(max=B + 2)]
+            b = byts[rows[:, None], ((cc + MIN_MATCH + k)[:, None] + t)
+                     .clamp(max=B + 2)]
+            neq = (a != b) | (pos >= match_limit[:, None])
+            first = torch.where(neq.any(1), neq.to(torch.int8).argmax(1),
+                                EXT_STEP)
+            k = torch.where(done, k, k + first)
+            done = done | (first < EXT_STEP)
+        mlen = MIN_MATCH + k
+        hits.append((hit, anchor, s - anchor, s - cand, mlen))
+        adv = s + mlen
+        s = torch.where(hit, adv, torch.where(live, s + (search >> 6), s))
+        anchor = torch.where(hit, adv, anchor)
+        search = torch.where(hit, fresh, torch.where(live, search + 1,
+                                                     search))
+    return _serialize(work, src_len, hits, anchor, ow)
+
+
+def _serialize(work, src_len, hits, anchor, ow):
+    """Write every row's sequences (its hits in probe order, then the
+    trailing literal run) into zeroed rows of width *ow*."""
+    dev = work.device
+    nb = work.shape[0]
+
+    def cols(i):
+        tail = {0: src_len > 0, 1: anchor, 2: src_len - anchor}.get(
+            i, torch.zeros_like(src_len))
+        return torch.stack([h[i] for h in hits] + [tail], 1)
+
+    valid = cols(0)
+    has_match = valid.clone()
+    has_match[:, -1] = False
+    lit_start, lit, offset = cols(1), cols(2), cols(3)
+    mcode = cols(4) - MIN_MATCH
+    ext_l = _ext_count(lit)
+    ext_m = torch.where(has_match, _ext_count(mcode), 0)
+    size = torch.where(valid, 1 + ext_l + lit
+                       + torch.where(has_match, 2 + ext_m, 0), 0)
+    out_lens = size.sum(1)
+    start = torch.cumsum(size, 1) - size
+    row = torch.arange(nb, device=dev)[:, None].expand_as(valid)
+    sel = valid
+    row, start, lit, lit_start = row[sel], start[sel], lit[sel], \
+        lit_start[sel]
+    offset, mcode, ext_l, ext_m = offset[sel], mcode[sel], ext_l[sel], \
+        ext_m[sel]
+    has_match = has_match[sel]
+    out = torch.zeros(nb * ow, dtype=torch.uint8, device=dev)
+    base = row * ow + start
+    token = (lit.clamp(max=15) << 4) \
+        | torch.where(has_match, mcode.clamp(max=15), 0)
+    out[base] = token.to(torch.uint8)
+
+    def put_ext(at, v, n):
+        owner, j = _expand(n)
+        val = torch.where(j < n[owner] - 1, 255, (v[owner] - 15) % 255)
+        out[at[owner] + j] = val.to(torch.uint8)
+
+    put_ext(base + 1, lit, ext_l)
+    owner, j = _expand(lit)
+    out[(base + 1 + ext_l)[owner] + j] = \
+        work[row[owner], lit_start[owner] + j]
+    at = (base + 1 + ext_l + lit)[has_match]
+    off = offset[has_match]
+    out[at] = (off & 0xFF).to(torch.uint8)
+    out[at + 1] = ((off >> 8) & 0xFF).to(torch.uint8)
+    put_ext(at + 2, mcode[has_match], ext_m[has_match])
+    return out.view(nb, ow), out_lens

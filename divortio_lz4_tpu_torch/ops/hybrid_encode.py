@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from divortio_lz4_tpu.constants import MF_LIMIT, MIN_MATCH, WINDOW_SIZE
+from ..constants import MF_LIMIT, MIN_MATCH, WINDOW_SIZE
 
 _M32 = 0xFFFFFFFF
 

@@ -23,8 +23,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from divortio_lz4_tpu.constants import WINDOW_SIZE
-from divortio_lz4_tpu.native import parse_records2_native
+from ..constants import WINDOW_SIZE
+from ..host import parse_records2_native
 
 W = WINDOW_SIZE
 SLACK = 256

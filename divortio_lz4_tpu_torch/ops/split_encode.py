@@ -3,8 +3,9 @@
 Port of ``divortio_lz4_tpu/ops/split_encode.py`` (``encode_blocks_chain``,
 the u16 branch of ``chain_select_serialize``, and
 ``chain_select_serialize_meta``). The device builds one u16 match distance
-per payload position (``build_dist_chains``); the JAX package's native host
-tier greedy-selects, extends and serializes each block from its chain. The
+per payload position (``build_dist_chains``); the port's host library
+(``csrc/host_kernels.cpp``, a copy of the JAX package's native functions)
+greedy-selects, extends and serializes each block from its chain. The
 native serializer is required: unlike the JAX module there is no
 pure-Python fallback.
 """
@@ -14,10 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from divortio_lz4_tpu.constants import block_bound
-from divortio_lz4_tpu.native import (chain_serialize16_meta_native,
-                                     chain_serialize16_native)
-
+from ..constants import block_bound
+from ..host import chain_serialize16_meta_native, chain_serialize16_native
 from .hybrid_encode import build_dist_chains
 
 # Rows per chain-builder call. Each call holds ~20 int64 [rows, N]

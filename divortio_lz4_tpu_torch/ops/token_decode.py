@@ -1,0 +1,407 @@
+"""Token-parsing block decode: the CUDA kernels' wrappers and their plain
+versions.
+
+Port of ``divortio_lz4_tpu/ops/pallas_decode.py``. Both TPU kernels run one
+interpreter, ``_interpret_block`` (``:116``); so do both entry points of
+``csrc/token_decode.cu``:
+
+- ``decode_blocks_pallas`` is TPU kernel ``_make_kernel`` (``:233``, run by
+  ``decode_blocks_pallas`` at ``:312``): independent blocks, one row each,
+  after an optional shared right-aligned 64 KB history (the TPU took a
+  per-row copy of it).
+- ``decode_token_chains`` is TPU kernel ``_make_linked_kernel`` (``:410``,
+  run by ``decode_linked_chunk_pallas`` at ``:474``): chains of dependent
+  rows, each chain decoded into [64 KB window | out0 | out1 ...], stored
+  rows copied through. A chain is a whole linked frame or one independent
+  big block: no chunking and no window carried between calls.
+  ``decode_linked_chunk`` keeps the JAX function's contract on top of it.
+
+On a CUDA tensor each wrapper launches its kernel (built by nvcc at first
+use) or raises; on a CPU tensor it runs the plain PyTorch version, which the
+CPU tests use and ``chip_smoke.py`` holds the kernel against. The
+interpreter's clamps are the contract on hostile input (see the CUDA
+source): both versions reproduce the TPU kernel's ``[0, out_len)`` and
+``out_len`` on any bytes, and write zeros past the decoded output where the
+TPU leaves wild writes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from .._build import load_library
+from ..constants import WINDOW_SIZE
+
+W = WINDOW_SIZE
+HALF_SLACK = 128      # SLACK // 2: literal reads may run this far past a row
+CHECK_EVERY = 32      # plain parse steps between checks for a live row
+
+
+class TokenChains(NamedTuple):
+    """Device tensors of one linked decode (decode_token_chains' input)."""
+    comp: torch.Tensor               # u8[comp_total] rows' wire bytes
+    comp_off: torch.Tensor           # i64[n_rows + 1]
+    stored: torch.Tensor             # u8[n_rows] stored-row flags
+    row_off: torch.Tensor            # i64[nc + 1] chain c's rows
+    # i64[nc + 1] chain c's output region: 0 = out_off[0] <= ... <=
+    # out_off[nc] = out_total, so the regions tile the output
+    out_off: torch.Tensor
+    seed: Optional[torch.Tensor]     # u8[W] starting window, or None (zeros)
+    block_size: int
+    out_total: int
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    lib = load_library("token_decode")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.lz4t_token_decode.argtypes = [p, i64, i64, p, p, i64, p, p, p]
+    lib.lz4t_token_decode.restype = ctypes.c_int
+    lib.lz4t_token_decode_linked.argtypes = [p, i64, p, p, i64, p, i64, p,
+                                             i64, p, i64, p, p, p]
+    lib.lz4t_token_decode_linked.restype = ctypes.c_int
+    return lib
+
+
+def _check_blocks(comp, lens, block_size, hist):
+    if comp.dtype != torch.uint8 or comp.dim() != 2 \
+            or not comp.is_contiguous():
+        raise ValueError("comp must be a contiguous u8[nb, M]")
+    if (lens.dtype != torch.int64 or tuple(lens.shape) != (comp.shape[0],)
+            or not lens.is_contiguous()):
+        raise ValueError("lens must be a contiguous i64[nb]")
+    if block_size < 1:
+        raise ValueError("block_size must be >= 1")
+    if hist is not None and (hist.dtype != torch.uint8
+                             or tuple(hist.shape) != (W,)
+                             or not hist.is_contiguous()):
+        raise ValueError(f"hist must be a contiguous u8[{W}]")
+    tensors = [comp, lens] + ([] if hist is None else [hist])
+    if any(x.device != comp.device for x in tensors):
+        raise ValueError("all inputs must be on one device")
+
+
+def decode_blocks_pallas(comp: torch.Tensor, lens: torch.Tensor,
+                         block_size: int,
+                         hist: Optional[torch.Tensor] = None):
+    """Decode a batch of independent blocks by parsing their tokens.
+
+    comp u8[nb, M]: row b's stream is its first lens[b] bytes (bytes past
+    it read as zeros, as the TPU rows' zero padding); lens i64[nb]; hist
+    u8[65536] right-aligned history of every block, or None. Returns (out
+    u8[nb, block_size], out_lens i64[nb]) on the inputs' device, zeros past
+    each out_len. On CUDA the kernel is queued on the current stream and
+    nothing synchronises; ``launches`` counts those launches."""
+    _check_blocks(comp, lens, block_size, hist)
+    if comp.device.type == "cpu":
+        return decode_blocks_pallas_plain(comp, lens, block_size, hist)
+    if comp.device.type != "cuda":
+        raise ValueError(f"no token decode for device {comp.device}")
+    nb = comp.shape[0]
+    out = torch.empty((nb, block_size), dtype=torch.uint8,
+                      device=comp.device)
+    out_lens = torch.empty(nb, dtype=torch.int64, device=comp.device)
+    if nb == 0:
+        return out, out_lens
+    fn = _kernels().lz4t_token_decode
+    with torch.cuda.device(comp.device):
+        stream = torch.cuda.current_stream(comp.device).cuda_stream
+        rc = fn(comp.data_ptr(), nb, comp.shape[1], lens.data_ptr(),
+                None if hist is None else hist.data_ptr(), block_size,
+                out.data_ptr(), out_lens.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"token_decode kernel launch failed: "
+                           f"cudaError {rc}")
+    decode_blocks_pallas.launches += 1
+    return out, out_lens
+
+
+decode_blocks_pallas.launches = 0
+
+
+def _check_chains(batch: TokenChains):
+    comp, comp_off, stored, row_off, out_off, seed, bs, out_total = batch
+    if comp.dtype != torch.uint8 or comp.dim() != 1 \
+            or not comp.is_contiguous():
+        raise ValueError("comp must be a contiguous u8[comp_total]")
+    n_rows = stored.shape[0] if stored.dim() == 1 else -1
+    if stored.dtype != torch.uint8 or n_rows < 0 \
+            or not stored.is_contiguous():
+        raise ValueError("stored must be a contiguous u8[n_rows]")
+    if comp_off.dtype != torch.int64 \
+            or tuple(comp_off.shape) != (n_rows + 1,) \
+            or not comp_off.is_contiguous():
+        raise ValueError("comp_off must be a contiguous i64[n_rows + 1]")
+    nc = row_off.shape[0] - 1 if row_off.dim() == 1 else -1
+    for name, x in (("row_off", row_off), ("out_off", out_off)):
+        if nc < 0 or x.dtype != torch.int64 or tuple(x.shape) != (nc + 1,) \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous i64[nc + 1]")
+    if seed is not None and (seed.dtype != torch.uint8
+                             or tuple(seed.shape) != (W,)
+                             or not seed.is_contiguous()):
+        raise ValueError(f"seed must be a contiguous u8[{W}]")
+    if not isinstance(bs, int) or bs < 1:
+        raise ValueError("block_size must be an int >= 1")
+    if not isinstance(out_total, int) or out_total < 0:
+        raise ValueError("out_total must be an int >= 0")
+    tensors = [comp, comp_off, stored, row_off, out_off] + \
+        ([] if seed is None else [seed])
+    if any(x.device != comp.device for x in tensors):
+        raise ValueError("all inputs must be on one device")
+
+
+def decode_token_chains(batch: TokenChains):
+    """Decode every chain of *batch*. Returns (out u8[out_total], out_lens
+    i64[n_rows]): chain c's decoded bytes start at out[out_off[c]] and run
+    for the sum of its rows' out_lens; the rest of its region is zeros.
+    The regions must tile out (see TokenChains.out_off): on CUDA a byte
+    outside every region is left unwritten. On CUDA the kernel is queued
+    on the current stream and nothing synchronises; ``launches`` counts
+    those launches."""
+    _check_chains(batch)
+    comp = batch.comp
+    if comp.device.type == "cpu":
+        return decode_token_chains_plain(batch)
+    if comp.device.type != "cuda":
+        raise ValueError(f"no token decode for device {comp.device}")
+    n_rows = batch.stored.shape[0]
+    nc = batch.row_off.shape[0] - 1
+    # the kernel writes every byte of each region: decoded, then zeros
+    out = torch.empty(batch.out_total, dtype=torch.uint8, device=comp.device)
+    out_lens = torch.zeros(n_rows, dtype=torch.int64, device=comp.device)
+    if nc == 0:
+        return out, out_lens
+    fn = _kernels().lz4t_token_decode_linked
+    with torch.cuda.device(comp.device):
+        stream = torch.cuda.current_stream(comp.device).cuda_stream
+        rc = fn(comp.data_ptr(), comp.shape[0], batch.comp_off.data_ptr(),
+                batch.stored.data_ptr(), n_rows, batch.row_off.data_ptr(),
+                nc, batch.out_off.data_ptr(), batch.out_total,
+                None if batch.seed is None else batch.seed.data_ptr(),
+                batch.block_size, out.data_ptr(), out_lens.data_ptr(),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"token_decode_linked kernel launch failed: "
+                           f"cudaError {rc}")
+    decode_token_chains.launches += 1
+    return out, out_lens
+
+
+decode_token_chains.launches = 0
+
+
+def decode_linked_chunk(comp: torch.Tensor, lens: torch.Tensor,
+                        stored: torch.Tensor, window: torch.Tensor,
+                        block_size: int):
+    """The contract of the JAX ``decode_linked_chunk_pallas`` on one chain.
+
+    comp u8[rows, M] wire bytes (row r's first lens[r]); lens i64[rows];
+    stored bool or int [rows]; window u8[W] right-aligned history. Returns
+    (out u8[rows * block_size] packed plaintext, total, out_lens i64[rows],
+    win_next u8[W], the last W bytes of [window | out[:total]])."""
+    rows = comp.shape[0]
+    dev = comp.device
+    keep = torch.arange(comp.shape[1], device=dev)[None, :] \
+        < lens.clamp(0, comp.shape[1])[:, None]
+    comp_off = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+    comp_off[1:] = torch.cumsum(keep.sum(1), 0)
+    batch = TokenChains(
+        comp[keep].contiguous(), comp_off, (stored != 0).to(torch.uint8),
+        torch.tensor([0, rows], dtype=torch.int64, device=dev),
+        torch.tensor([0, rows * block_size], dtype=torch.int64, device=dev),
+        window.contiguous(), block_size, rows * block_size)
+    out, out_lens = decode_token_chains(batch)
+    total = out_lens.sum()
+    win_next = torch.cat([window, out])[total: total + W]
+    return out, total, out_lens, win_next
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+class _Stream:
+    """A flat byte buffer of compressed rows, read as the interpreter reads
+    them: bytes at or past a row's end are zeros. ``run_end(i, end)`` is
+    the first index >= i (and <= end) whose byte is not 255: the end of a
+    0xFF-run length extension starting at i."""
+
+    def __init__(self, flat: torch.Tensor):
+        n = flat.shape[0]
+        self.flat = flat.to(torch.int64)
+        self.n = n
+        pos = torch.arange(n, device=flat.device)
+        mark = torch.where(self.flat != 255, pos, n)
+        self.nxt = torch.flip(torch.cummin(torch.flip(mark, [0]), 0).values,
+                              [0]) if n else mark
+
+    def at(self, i, end):
+        v = self.flat[i.clamp(0, max(self.n - 1, 0))] if self.n \
+            else torch.zeros_like(i)
+        return torch.where(i < end, v, 0)
+
+    def run_end(self, i, end):
+        if not self.n:
+            return i
+        nx = self.nxt[i.clamp(0, self.n - 1)]
+        return torch.maximum(torch.minimum(nx, end), i)
+
+    def ext(self, i, end):
+        """(sum of the extension at i, index past it)."""
+        q = self.run_end(i, end)
+        return 255 * (q - i) + self.at(q, end), q + 1
+
+
+def _parse(st: _Stream, start, clen, o, o_limit, lits, matches):
+    """_interpret_block on rows batched together, one torch step per
+    sequence: row k's stream is st[start[k]: start[k] + clen[k]], its
+    cursor starts at o[k] and stops at o_limit[k]. Appends each step's
+    literal spans (io position, wire position, length) to *lits* and match
+    spans (io position, offset, length) to *matches*; returns the final
+    cursors. Decoding bytes is left to _run: the parse never reads output."""
+    end = start + clen
+    p = torch.zeros_like(start)
+    step = 0
+    while step % CHECK_EVERY or bool((p < clen).any()):
+        step += 1
+        live = p < clen
+        tok = st.at(start + p, end)
+        nib = tok >> 4
+        ext, after = st.ext(start + p + 1, end)
+        lit = torch.where(nib == 15, 15 + ext, nib)
+        p1 = torch.where(nib == 15, after - start, p + 1)
+        lit = torch.minimum(torch.minimum(lit, o_limit - o),
+                            clen + HALF_SLACK - p1).clamp(min=0)
+        lit = torch.where(live, lit, 0)
+        lits.append((o, start + p1, lit, end))
+        p2 = p1 + lit
+        o2 = o + lit
+        valid = live & (p2 < clen)
+        offset = st.at(start + p2, end) | (st.at(start + p2 + 1, end) << 8)
+        mnib = tok & 15
+        ext, after = st.ext(start + p2 + 2, end)
+        ml = torch.where(mnib == 15, 15 + ext, mnib)
+        p3 = torch.where(mnib == 15, after - start, p2 + 2)
+        mlen = torch.where(valid, torch.minimum(ml + 4, o_limit - o2), 0)
+        mlen = torch.where((offset >= 1) & (offset <= o2), mlen, 0)
+        matches.append((o2, offset, mlen))
+        p = torch.where(live, torch.where(valid, p3, p2), p)
+        o = torch.where(live, o2 + mlen, o)
+    return o
+
+
+def _run(st: _Stream, io: torch.Tensor, io_base, lits, matches):
+    """Write the parsed spans into the flat io buffer: every literal span
+    first (their sources are wire bytes), then the matches in parse order,
+    each from [o - offset, o), which is complete when it runs. Span
+    positions are relative to io_base (one per row)."""
+    dev = io.device
+    if lits:
+        o, src, n, end = (torch.stack(x).reshape(-1) for x in zip(*lits))
+        base = io_base.repeat(len(lits))
+        owner = torch.repeat_interleave(torch.arange(len(n), device=dev), n)
+        j = torch.arange(len(owner), device=dev) \
+            - (torch.cumsum(n, 0) - n)[owner]
+        io[base[owner] + o[owner] + j] = \
+            st.at(src[owner] + j, end[owner]).to(torch.uint8)
+    if not matches:
+        return
+    mo, moff, mlen = (torch.stack(x) for x in zip(*matches))   # [T, rows]
+    widths = mlen.max(1).values.tolist()
+    for k, width in enumerate(widths):
+        if width <= 0:
+            continue
+        i = torch.arange(width, device=dev)
+        off = moff[k].clamp(min=1)[:, None]
+        at = (io_base + mo[k])[:, None]
+        take = i < mlen[k][:, None]
+        src = at - off + i % off
+        dst = torch.where(take, at + i, io.shape[0] - 1)
+        io[dst] = torch.where(take, io[src.clamp(min=0)], io[-1])
+
+
+def decode_blocks_pallas_plain(comp: torch.Tensor, lens: torch.Tensor,
+                               block_size: int,
+                               hist: Optional[torch.Tensor] = None):
+    """decode_blocks_pallas in plain PyTorch (any device): the parse batched
+    over rows, one step per sequence, then the spans written in order."""
+    _check_blocks(comp, lens, block_size, hist)
+    dev = comp.device
+    nb, M = comp.shape
+    base = W if hist is not None else 0
+    row_w = base + block_size
+    st = _Stream(comp.reshape(-1))
+    start = torch.arange(nb, device=dev) * M
+    clen = lens.clamp(0, M)
+    o0 = torch.full((nb,), base, dtype=torch.int64, device=dev)
+    lits, matches = [], []
+    o = _parse(st, start, clen, o0, o0 + block_size, lits, matches) \
+        if nb else o0
+    # one spare byte at the end takes the writes of masked lanes
+    io = torch.zeros(nb * row_w + 1, dtype=torch.uint8, device=dev)
+    if hist is not None and nb:
+        io[:-1].view(nb, row_w)[:, :W] = hist
+    io_base = torch.arange(nb, device=dev) * row_w
+    _run(st, io, io_base, lits, matches)
+    out_lens = o - base
+    out = io[:-1].view(nb, row_w)[:, base:]
+    keep = torch.arange(block_size, device=dev)[None, :] < out_lens[:, None]
+    return torch.where(keep, out, 0).contiguous(), out_lens
+
+
+def decode_token_chains_plain(batch: TokenChains):
+    """decode_token_chains in plain PyTorch (any device): chains batched,
+    their rows parsed in order (row r of every chain per pass), then the
+    spans written in parse order."""
+    _check_chains(batch)
+    comp, comp_off, stored, row_off, out_off, seed, bs, out_total = batch
+    dev = comp.device
+    n_rows = stored.shape[0]
+    nc = row_off.shape[0] - 1
+    r0 = row_off[:-1].clamp(0, n_rows)
+    nrow = torch.maximum(row_off[1:].clamp(0, n_rows), r0) - r0
+    o0 = out_off[:-1].clamp(0, out_total)
+    cap = torch.maximum(out_off[1:].clamp(0, out_total), o0) - o0
+    st = _Stream(comp)
+    cursor = torch.full((nc,), W, dtype=torch.int64, device=dev)
+    out_lens = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    lits, matches = [], []
+    for r in range(int(nrow.max()) if nc else 0):
+        has = r < nrow
+        row = (r0 + r).clamp(max=max(n_rows - 1, 0))
+        w0 = comp_off[row].clamp(0, comp.shape[0])
+        wl = torch.where(has, torch.maximum(
+            comp_off[row + 1].clamp(0, comp.shape[0]), w0) - w0, 0)
+        is_stored = has & (stored[row] != 0)
+        limit = torch.minimum(cursor + bs, W + cap)
+        # stored rows: one literal span of their wire bytes
+        n_st = torch.where(is_stored, torch.minimum(wl, limit - cursor), 0)
+        lits.append((cursor, w0, n_st, w0 + wl))
+        o = _parse(st, w0, torch.where(is_stored, 0, wl), cursor, limit,
+                   lits, matches)
+        n = torch.where(is_stored, n_st, o - cursor)
+        out_lens[row[has]] = n[has]
+        cursor = cursor + n
+    io_w = W + cap + 1
+    io_base = torch.cumsum(io_w, 0) - io_w
+    io = torch.zeros(int(io_w.sum()) + 1, dtype=torch.uint8, device=dev)
+    if seed is not None and nc:
+        io[io_base[:, None] + torch.arange(W, device=dev)] = seed.expand(nc,
+                                                                         W)
+    _run(st, io, io_base, lits, matches)
+    out = torch.zeros(out_total, dtype=torch.uint8, device=dev)
+    decoded = cursor - W
+    owner = torch.repeat_interleave(torch.arange(nc, device=dev), decoded)
+    pos = torch.arange(len(owner), device=dev) \
+        - (torch.cumsum(decoded, 0) - decoded)[owner]
+    out[o0[owner] + pos] = io[io_base[owner] + W + pos]
+    return out, out_lens

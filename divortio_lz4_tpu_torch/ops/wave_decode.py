@@ -34,10 +34,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from divortio_lz4_tpu.native import scan_pieces_native
-from divortio_lz4_tpu.utils.pool import host_pool
-
 from .._build import load_library
+from ..host import scan_pieces_native
+from ..utils import host_pool
 from .split_decode import parse_records_wire, stored_wire_records
 
 W = 65536       # seed window ahead of a chain's output

@@ -23,10 +23,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from divortio_lz4_tpu.constants import WINDOW_SIZE, block_bound
-from divortio_lz4_tpu.utils.pool import host_pool
-
+from ..constants import WINDOW_SIZE, block_bound
 from ..ops.split_encode import chain_select_serialize_meta, encode_blocks_chain
+from ..utils import host_pool
 
 SEG = WINDOW_SIZE            # encode segment size (the u16 chain ceiling)
 

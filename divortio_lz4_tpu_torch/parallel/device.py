@@ -1,8 +1,10 @@
-"""Frame codec on a torch device: the split engine, every block size and
-both block modes.
+"""Frame codec on a torch device: the split and pallas engines.
 
-Port of the ``engine="split"`` path of ``divortio_lz4_tpu/parallel/
-device.py`` (``device_compress_frame(s)``, ``device_decompress_frame(s)``).
+Port of the ``engine="split"`` and ``engine="pallas"`` paths of
+``divortio_lz4_tpu/parallel/device.py`` (``device_compress_frame(s)``,
+``device_decompress_frame(s)``).
+
+Split engine:
 
 - Encode, blocks of up to 64 KB: ``_compress_independent_split`` or
   ``_compress_linked_split`` queues the chain builder on the device
@@ -18,6 +20,21 @@ device.py`` (``device_compress_frame(s)``, ``device_decompress_frame(s)``).
   independent 1-4 MB blocks and every linked frame -> chain kernel
   (``ops/wave_decode``).
 
+Pallas engine (the JAX routes of ``device.py:161-169, 623-645``, so that
+verdicts match):
+
+- Encode: independent frames without a dictionary, at every block size,
+  through the greedy kernel (``ops/greedy_encode``, reference-identical
+  bytes) and ``_assemble_frame_host``. Linked frames and dictionaries go
+  to the XLA encoder in JAX, which is not ported: they raise.
+- Decode: independent frames whose rows fit the TPU kernel's VMEM budget
+  (``_pallas_indep_fits``) -> token decode per block
+  (``ops/token_decode.decode_blocks_pallas``); other independent frames
+  and linked frames of blocks over 256 KB -> the native scan of every
+  block (the checks of ``bigblock._plan_pieces``), then the linked token
+  kernel, one chain per independent block or one for the linked frame;
+  linked frames of blocks up to 256 KB -> one chain, no scan.
+
 ``compress_frames`` / ``decompress_frames`` queue every frame's device
 work first, whatever its configuration, fetch all of it with one
 device-to-host copy, then finish each frame on the host. The single-frame
@@ -25,7 +42,7 @@ entry points are the one-frame case.
 
 The frame host helpers below are copies of the JAX module's (it imports
 jax at module level); their semantics and "LZ4: ..." errors are unchanged.
-Engines other than "split" are not ported yet and raise
+The "hybrid" and "xla" engines are not ported yet and raise
 NotImplementedError; nothing falls back to another codec.
 """
 
@@ -36,8 +53,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from divortio_lz4_tpu.config import DEFAULT_CONFIG, FrameConfig
-from divortio_lz4_tpu.constants import (
+from ..config import DEFAULT_CONFIG, FrameConfig
+from ..constants import (
     BLOCK_SIZE_MASK,
     FLG_BLOCK_CHECKSUM,
     FLG_CONTENT_CHECKSUM,
@@ -49,16 +66,17 @@ from divortio_lz4_tpu.constants import (
     UNCOMPRESSED_FLAG,
     WINDOW_SIZE,
 )
-from divortio_lz4_tpu.utils import ensure_buffer, read_u32le, write_u32le
-from divortio_lz4_tpu.utils.pool import host_pool
-from divortio_lz4_tpu.xxh import xxhash32
-
 from .._device import resolve_device
 from ..ops.compact_decode import decode_blocks_compact
+from ..ops.greedy_encode import encode_blocks_pallas
 from ..ops.split_decode import from_reference_records, parse_wire_raw
 from ..ops.split_encode import chain_select_serialize, encode_blocks_chain
-from ..ops.wave_decode import decode_chains, stage_chains
+from ..ops.token_decode import (TokenChains, decode_blocks_pallas,
+                                decode_token_chains)
+from ..ops.wave_decode import _block_out_len, decode_chains, stage_chains
 from ..ops.wire_decode import decode_blocks_wire, parse_wire_batch
+from ..utils import ensure_buffer, host_pool, read_u32le, write_u32le
+from ..xxh import xxhash32
 from .bigblock import queue_frame_big, splice_blocks_big
 
 # Largest block the compact decode kernel and the one-row chain encode take
@@ -67,6 +85,14 @@ SPLIT_MAX_BS = 65536
 # Largest independent block the padded wire kernel decodes
 # (device.py:_SPLIT_MAX_BS); bigger ones decode as chains.
 WIRE_MAX_BS = 262144
+# Engines the port runs (ROADMAP.md queue 1 item 9 lists the others).
+ENGINES = ("split", "pallas")
+# The pallas decode router's constants (pallas_decode.py SLACK and
+# VMEM_BUDGET, device.py:_PALLAS_LINKED_MAX_BS): they decide which route a
+# frame takes, and so which errors it can raise.
+PALLAS_SLACK = 256
+PALLAS_VMEM_BUDGET = 6 * 1024 * 1024
+PALLAS_LINKED_MAX_BS = 262144
 
 
 def _blocks_to_batch(raw: np.ndarray, block_size: int):
@@ -226,11 +252,19 @@ def parse_block_index(buf: np.ndarray, verify_checksum: bool = True):
     return header, blocks, pos
 
 
-def _require_split(engine: str) -> None:
-    if engine != "split":
+def _require_engine(engine: str) -> None:
+    if engine not in ENGINES:
         raise NotImplementedError(
-            f"engine={engine!r} is not ported; only engine='split' is "
-            "(ROADMAP.md queue 1 item 9: other engines)")
+            f"engine={engine!r} is not ported; engine='split' and "
+            "engine='pallas' are (ROADMAP.md queue 1 item 9: other engines)")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _put(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -324,67 +358,121 @@ def _split_encode_fetch(state: _EncodeState, chains_np: np.ndarray) -> list:
 
 
 def _queue_compress(raw, config: FrameConfig, window, dict_id, device
-                    ) -> tuple[torch.Tensor, Callable]:
-    """Queue one frame's chain builds on *device*. Returns (chains still
-    queued, finish) where finish(fetched chains) returns the frame."""
+                    ) -> tuple[list, Callable]:
+    """Queue one frame's split-engine chain builds on *device*. Returns
+    (device tensors still queued, finish) where finish(the tensors,
+    fetched) returns the frame."""
     bs = config.resolved_block_size
     n = len(raw)
     if bs > SPLIT_MAX_BS:
         big = queue_frame_big(raw, bs, window, not config.block_independence,
                               device)
 
-        def finish(chains_np):
-            comps = splice_blocks_big(big, chains_np)
+        def finish(fetched):
+            comps = splice_blocks_big(big, fetched[0])
             # An empty payload makes a frame with no block (bigblock.py
             # _finish_frame_big).
             nblocks = len(comps) if n else 0
             lens = [min(bs, n - b * bs) for b in range(nblocks)]
             return _assemble_frame_host(raw, comps, lens, nblocks, bs,
                                         config, dict_id)
-        return big.chains, finish
+        return [big.chains], finish
 
     queue = (_compress_independent_split if config.block_independence
              else _compress_linked_split)
     st = queue(raw, bs, window, device)
 
-    def finish(chains_np):
-        return _assemble_frame_host(raw, _split_encode_fetch(st, chains_np),
+    def finish(fetched):
+        return _assemble_frame_host(raw, _split_encode_fetch(st, fetched[0]),
                                     st.lens, st.nblocks, bs, config, dict_id)
-    return st.chains, finish
+    return [st.chains], finish
+
+
+def _queue_compress_pallas(raw, config: FrameConfig, device
+                           ) -> tuple[list, Callable]:
+    """Queue one independent frame's greedy encode on *device* (the
+    engine="pallas" branch of device_compress_frame, ``device.py:161``:
+    ``_blocks_to_batch``, the kernel, ``_host_assemble``). Returns (device
+    tensors still queued, finish) as _queue_compress does."""
+    bs = config.resolved_block_size
+    n = len(raw)
+    work, lens, nblocks = _blocks_to_batch(raw, bs)
+    out, out_lens = encode_blocks_pallas(
+        _put(work, device), _put(lens.astype(np.int64), device), bs)
+
+    def finish(fetched):
+        outs, ols = fetched
+        # An empty payload makes a frame with no block (_host_assemble).
+        nb = nblocks if n else 0
+        comps = [outs[b, : int(ols[b])] for b in range(nb)]
+        return _assemble_frame_host(raw, comps, lens, nb, bs, config, None)
+    return [out, out_lens], finish
+
+
+_NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16,
+              torch.int32: np.int32, torch.int64: np.int64}
 
 
 def _fetch_all(tensors: list) -> list:
-    """Copy device tensors of one dtype and any shapes to the host with ONE
-    device-to-host transfer (flattened, then cut and reshaped); returns
-    numpy arrays in input order."""
+    """Copy device tensors of any dtypes and shapes to the host with ONE
+    device-to-host transfer (each viewed as bytes, padded to 8-byte
+    alignment and joined, then cut and viewed back); returns numpy arrays
+    in input order."""
     if not tensors:
         return []
-    flat = torch.cat([x.reshape(-1) for x in tensors]).cpu().numpy()
-    out, pos = [], 0
+    parts, spans = [], []
+    pos = 0
     for x in tensors:
-        out.append(flat[pos: pos + x.numel()].reshape(tuple(x.shape)))
-        pos += x.numel()
-    return out
+        b = x.contiguous().reshape(-1).view(torch.uint8)
+        pad = -b.numel() % 8
+        parts.append(b)
+        if pad:
+            parts.append(torch.zeros(pad, dtype=torch.uint8,
+                                     device=b.device))
+        spans.append(pos)
+        pos += b.numel() + pad
+    flat = torch.cat(parts).cpu().numpy()
+    return [flat[at: at + x.numel() * x.element_size()]
+            .view(_NP_DTYPES[x.dtype]).reshape(tuple(x.shape))
+            for x, at in zip(tensors, spans)]
 
 
 def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
                     dictionary=None, engine: str = "split", *,
-                    device) -> list:
+                    device="cuda") -> list:
     """Encode N payloads into N frames with every frame's device work in
-    flight before the first fetch. Frames are byte-identical to the JAX
-    package's ``device_compress_frame(engine="split")``."""
+    flight before one fetch per batch. Frames are byte-identical to the
+    JAX package's ``device_compress_frame`` with the same *engine*:
+    "split" takes every configuration; "pallas" (the reference encoder's
+    own greedy scan, byte-identical to ``divortio_lz4_tpu.compress``)
+    takes independent frames without a dictionary and raises
+    NotImplementedError on the rest, which JAX sends to its XLA encoder.
+    *device* is "cuda" unless the caller asks for the CPU."""
     dev = resolve_device(device)
-    _require_split(engine)
+    _require_engine(engine)
+    if engine == "pallas" and (dictionary is not None
+                               or not config.block_independence):
+        raise NotImplementedError(
+            "engine='pallas' encodes independent frames without a "
+            "dictionary; the JAX package sends linked frames and "
+            "dictionaries to its XLA encoder, which is not ported "
+            "(ROADMAP.md queue 1 item 9: other engines)")
     window, dict_id = _dict_window(dictionary)
-    queued = [_queue_compress(ensure_buffer(d), config, window, dict_id, dev)
-              for d in datas]
-    fetched = _fetch_all([chains for chains, _ in queued])
-    return [finish(c) for (_, finish), c in zip(queued, fetched)]
+    if engine == "pallas":
+        queued = [_queue_compress_pallas(ensure_buffer(d), config, dev)
+                  for d in datas]
+    else:
+        queued = [_queue_compress(ensure_buffer(d), config, window, dict_id,
+                                  dev) for d in datas]
+    fetched = iter(_fetch_all([t for tensors, _ in queued
+                               for t in tensors]))
+    return [finish([next(fetched) for _ in tensors])
+            for tensors, finish in queued]
 
 
 def compress_frame(data, config: FrameConfig = DEFAULT_CONFIG,
                    dictionary=None, engine: str = "split", *,
-                   device) -> np.ndarray:
+                   device="cuda") -> np.ndarray:
     """Compress *data* into one LZ4 frame on *device* (see
     compress_frames)."""
     return compress_frames([data], config, dictionary, engine,
@@ -399,36 +487,30 @@ class _DecodeState(NamedTuple):
     header: dict
     buf: np.ndarray
     tail: int
-    # queued on the device: u8[nb, bs] rows (with out_lens i64[nb]), or
-    # the whole plaintext u8[n] (out_lens None); None for no blocks
-    out: Optional[torch.Tensor]
-    out_lens: Optional[np.ndarray]
+    tensors: list           # device tensors still queued (none: no blocks)
+    join: Callable          # the tensors, fetched -> plaintext
 
 
 def _decode_independent_split(buf, blocks, bs, window, device):
     """Parse every block's records on the host and queue the compact
-    decode kernel. Returns (out u8[nb, bs] on *device*, out_lens)."""
+    decode kernel. Returns (device tensors, join)."""
     entries = [(buf[off: off + size], stored) for off, size, stored in blocks]
     wire, recs_l, _, out_lens, hist = parse_wire_raw(entries, bs, window)
     batch = from_reference_records(wire, recs_l, out_lens, hist, device)
     out = decode_blocks_compact(batch.wire, batch.rec_words, batch.rec_off,
                                 batch.out_lens, bs, batch.hist)
-    return out, out_lens
+    return [out], lambda f: _split_decode_fetch(f[0], out_lens)
 
 
 def _decode_wide_split(buf, blocks, bs, window, device):
     """Parse every block's records into padded rows on the host and queue
-    the wire decode kernel. Returns (out u8[nb, bs] on *device*,
-    out_lens)."""
+    the wire decode kernel. Returns (device tensors, join)."""
     entries = [(buf[off: off + size], stored) for off, size, stored in blocks]
     wire, recs, counts, out_lens, hist = parse_wire_batch(entries, bs, window)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    out = decode_blocks_wire(put(wire), put(recs), put(counts), bs,
-                             None if hist is None else put(hist))
-    return out, out_lens
+    out = decode_blocks_wire(_put(wire, device), _put(recs, device),
+                             _put(counts, device), bs,
+                             None if hist is None else _put(hist, device))
+    return [out], lambda f: _split_decode_fetch(f[0], out_lens)
 
 
 def _split_decode_fetch(out_np: np.ndarray, out_lens) -> np.ndarray:
@@ -439,8 +521,122 @@ def _split_decode_fetch(out_np: np.ndarray, out_lens) -> np.ndarray:
                            for i, n in enumerate(out_lens)])
 
 
-def _stage_frame(buf, verify_checksum, window, dict_id,
-                 device) -> _DecodeState:
+def _bucket_pow2(n: int, floor: int = 4096) -> int:
+    b = floor
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _pallas_indep_fits(blocks, bs: int, window) -> bool:
+    """Whether the JAX package decodes this independent frame with its
+    batched token kernel (``device.py:_pallas_indep_fits`` with
+    ``pallas_row_bytes``): the per-block VMEM footprint of the pow2-bucketed
+    compressed width fits the budget. Otherwise it takes the scan route."""
+    max_comp = max((size for _, size, stored in blocks if not stored),
+                   default=1)
+    M = _bucket_pow2(_round_up(max_comp + PALLAS_SLACK, 1024), 1024)
+    hist = WINDOW_SIZE if window is not None else 0
+    row = (_round_up(hist + bs + PALLAS_SLACK, 1024) + M + hist) * 4
+    return row <= PALLAS_VMEM_BUDGET
+
+
+def _seed_window(window, device) -> Optional[torch.Tensor]:
+    """The dictionary right-aligned in a 64 KB window, or None."""
+    if window is None:
+        return None
+    seed = np.zeros(WINDOW_SIZE, np.uint8)
+    seed[WINDOW_SIZE - len(window):] = window
+    return _put(seed, device)
+
+
+def stage_token_blocks(buf, blocks, window, device):
+    """The inputs of decode_blocks_pallas for an independent frame's
+    blocks, on *device*: (comp u8[nb, M], lens i64[nb], hist u8[W] or
+    None). Stored blocks get length 0: they are not decoded, their wire
+    bytes being the plaintext."""
+    nb = len(blocks)
+    max_comp = max((size for _, size, stored in blocks if not stored),
+                   default=1)
+    # >= 256 zero bytes past every row, as the TPU rows carry
+    comp = np.zeros((nb, _round_up(max_comp + PALLAS_SLACK, 128)), np.uint8)
+    lens = np.zeros(nb, np.int64)
+    for i, (off, size, stored) in enumerate(blocks):
+        if not stored:
+            comp[i, :size] = buf[off: off + size]
+            lens[i] = size
+    return _put(comp, device), _put(lens, device), \
+        _seed_window(window, device)
+
+
+def _decode_independent_pallas(buf, blocks, bs, window, device):
+    """Queue the token decode of every block of an independent frame (the
+    JAX ``_decode_independent_pallas``). Returns (device tensors, join)."""
+    comp, lens, hist = stage_token_blocks(buf, blocks, window, device)
+    out, out_lens = decode_blocks_pallas(comp, lens, bs, hist)
+
+    def join(fetched):
+        rows, ols = fetched
+        return np.concatenate([
+            buf[off: off + size] if stored else rows[i, : int(ols[i])]
+            for i, (off, size, stored) in enumerate(blocks)])
+    return [out, out_lens], join
+
+
+def stage_token_chains(buf, blocks, header, window, device, scan: bool):
+    """The chains of a frame for decode_token_chains: one chain per block
+    of an independent frame, one chain for a linked frame, each starting
+    from the dictionary window (or zeros). Returns (TokenChains on
+    *device*, row_off and out_off as numpy).
+
+    With *scan*, every block is first scanned on the host pool, as the JAX
+    ``bigblock._plan_pieces`` does, in block order: a broken stream raises
+    the scanner's "LZ4: ..." error and a block that decodes past the
+    frame's block size "LZ4: Output Buffer Too Small"; each chain's output
+    is then sized exactly. Without (linked frames of blocks up to 256 KB,
+    the JAX ``_decode_linked_pallas``), nothing is checked and the chain
+    has room for every block at full size. The TPU's 64 KB pieces exist
+    for VMEM and are not ported, so giant-RLE blocks, for which JAX falls
+    back to its XLA decoder, decode here too."""
+    bs = header["block_max"]
+    nb = len(blocks)
+    sizes = np.array([size for _, size, _ in blocks], np.int64)
+    if scan:
+        caps = np.array(list(host_pool().map(
+            lambda b: _block_out_len(buf, *b, bs), blocks)), np.int64)
+    else:
+        caps = np.full(nb, bs, np.int64)
+    comp = np.concatenate([buf[off: off + size] for off, size, _ in blocks])
+    comp_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    stored = np.array([st for _, _, st in blocks], np.uint8)
+    starts = np.arange(nb + 1) if header["independent"] else np.array([0, nb])
+    out_off = np.concatenate([[0], np.cumsum(caps)])[starts].astype(np.int64)
+    batch = TokenChains(_put(comp, device), _put(comp_off, device),
+                        _put(stored, device),
+                        _put(starts.astype(np.int64), device),
+                        _put(out_off, device), _seed_window(window, device),
+                        bs, int(out_off[-1]))
+    return batch, starts, out_off
+
+
+def _decode_chains_pallas(buf, blocks, header, window, device, scan: bool):
+    """Queue the linked token decode of a frame (stage_token_chains).
+    Returns (device tensors, join)."""
+    batch, starts, out_off = stage_token_chains(buf, blocks, header, window,
+                                                device, scan)
+    out, out_lens = decode_token_chains(batch)
+
+    def join(fetched):
+        flat, ols = fetched
+        done = np.concatenate([[0], np.cumsum(ols)])[starts]
+        return np.concatenate([flat[out_off[c]: out_off[c] + done[c + 1]
+                                    - done[c]]
+                               for c in range(len(starts) - 1)])
+    return [out, out_lens], join
+
+
+def _stage_frame(buf, verify_checksum, window, dict_id, device,
+                 engine) -> _DecodeState:
     """Header, dictionary and block-checksum checks, then queue the decode
     (device_decompress_frame's order of checks)."""
     header, blocks, tail = parse_block_index(buf, verify_checksum)
@@ -456,27 +652,33 @@ def _stage_frame(buf, verify_checksum, window, dict_id,
             if stored != xxhash32(buf[off: off + size], 0):
                 raise ValueError("LZ4: Block Checksum Error")
     if not blocks:
-        return _DecodeState(header, buf, tail, None, None)
-    if header["independent"] and bs <= SPLIT_MAX_BS:
-        out, out_lens = _decode_independent_split(buf, blocks, bs, window,
+        tensors, join = [], lambda f: np.empty(0, dtype=np.uint8)
+    elif engine == "pallas" and header["independent"]:
+        if _pallas_indep_fits(blocks, bs, window):
+            tensors, join = _decode_independent_pallas(buf, blocks, bs,
+                                                       window, device)
+        else:
+            tensors, join = _decode_chains_pallas(buf, blocks, header,
+                                                  window, device, scan=True)
+    elif engine == "pallas":
+        tensors, join = _decode_chains_pallas(
+            buf, blocks, header, window, device,
+            scan=bs > PALLAS_LINKED_MAX_BS)
+    elif header["independent"] and bs <= SPLIT_MAX_BS:
+        tensors, join = _decode_independent_split(buf, blocks, bs, window,
                                                   device)
     elif header["independent"] and bs <= WIRE_MAX_BS:
-        out, out_lens = _decode_wide_split(buf, blocks, bs, window, device)
+        tensors, join = _decode_wide_split(buf, blocks, bs, window, device)
     else:
-        out = decode_chains(stage_chains(buf, blocks, header, window,
-                                         device))
-        out_lens = None
-    return _DecodeState(header, buf, tail, out, out_lens)
+        tensors = [decode_chains(stage_chains(buf, blocks, header, window,
+                                              device))]
+        join = lambda f: f[0]   # noqa: E731  (the chains tile the frame)
+    return _DecodeState(header, buf, tail, tensors, join)
 
 
-def _finish_frame(state: _DecodeState, out_np, verify_checksum
+def _finish_frame(state: _DecodeState, fetched, verify_checksum
                   ) -> np.ndarray:
-    if state.out is None:
-        result = np.empty(0, dtype=np.uint8)
-    elif state.out_lens is None:
-        result = out_np
-    else:
-        result = _split_decode_fetch(out_np, state.out_lens)
+    result = state.join(fetched)
     if state.header["content_checksum"] and verify_checksum:
         if state.tail + 4 > len(state.buf):
             raise ValueError("LZ4: Malformed Input")
@@ -487,21 +689,25 @@ def _finish_frame(state: _DecodeState, out_np, verify_checksum
 
 def decompress_frames(frames, verify_checksum: bool = True,
                       dictionary=None, engine: str = "split", *,
-                      device) -> list:
-    """Decode N frames with every frame's kernel queued before one fetch.
-    A frame with a dictID requires *dictionary* and verifies its id."""
+                      device="cuda") -> list:
+    """Decode N frames with every frame's kernel queued before one fetch
+    per batch. The bytes, or the "LZ4: ..." error, are the JAX package's
+    ``device_decompress_frame`` with the same *engine* ("split" or
+    "pallas"). A frame with a dictID requires *dictionary* and verifies its
+    id. *device* is "cuda" unless the caller asks for the CPU."""
     dev = resolve_device(device)
-    _require_split(engine)
+    _require_engine(engine)
     window, dict_id = _dict_window(dictionary)
     states = [_stage_frame(ensure_buffer(f), verify_checksum, window,
-                           dict_id, dev) for f in frames]
-    fetched = iter(_fetch_all([s.out for s in states if s.out is not None]))
-    return [_finish_frame(s, None if s.out is None else next(fetched),
+                           dict_id, dev, engine) for f in frames]
+    fetched = iter(_fetch_all([t for s in states for t in s.tensors]))
+    return [_finish_frame(s, [next(fetched) for _ in s.tensors],
                           verify_checksum) for s in states]
 
 
 def decompress_frame(data, verify_checksum: bool = True, dictionary=None,
-                     engine: str = "split", *, device) -> np.ndarray:
+                     engine: str = "split", *,
+                     device="cuda") -> np.ndarray:
     """Decompress one LZ4 frame on *device* (see decompress_frames)."""
     return decompress_frames([data], verify_checksum, dictionary, engine,
                              device=device)[0]

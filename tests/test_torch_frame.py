@@ -9,6 +9,10 @@ over 64 KB and linked frames are held against JAX in
 tests/test_torch_bigblock.py and tests/test_torch_wave.py.
 """
 
+import ast
+import dataclasses
+import glob
+import itertools
 import os
 import subprocess
 import sys
@@ -170,7 +174,7 @@ def test_frames_in_flight_keep_order():
 
 def test_unsupported_configurations_raise():
     data = np.zeros(1000, np.uint8)
-    for engine in ("xla", "pallas", "hybrid"):
+    for engine in ("xla", "hybrid"):
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             pt.compress_frame(data, CFG, engine=engine, device="cpu")
         with pytest.raises(NotImplementedError, match=f"engine='{engine}'"):
@@ -200,15 +204,90 @@ def test_cuda_raises_without_gpu():
         pt.decompress_frames([], device="cuda")
 
 
+def test_default_device_is_cuda():
+    """Entry points run on the card unless the caller asks for the CPU:
+    without a GPU the default raises, it does not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU error cannot show")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pt.compress_frame(b"abc", CFG)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pt.decompress_frames([lz4.compress(b"abc")], engine="pallas")
+
+
 def test_import_leaves_jax_out():
-    """The port never imports jax (checked in a fresh interpreter: this
-    test process has jax loaded by the suite's conftest)."""
-    code = ("import sys, divortio_lz4_tpu_torch; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] == "
-            "'jax'); assert not bad, bad")
+    """The port never imports jax or the JAX package, not even its host
+    modules: checked in a fresh interpreter (this test process has jax
+    loaded by the suite's conftest) after a CPU round trip on both
+    engines."""
+    code = "\n".join([
+        "import sys, numpy as np, divortio_lz4_tpu_torch as pt",
+        "data = np.frombuffer(b'port round trip ' * 5000, np.uint8)",
+        "cfg = pt.FrameConfig(block_size=65536, block_independence=True,",
+        "                     content_checksum=True)",
+        "for engine in ('split', 'pallas'):",
+        "    f = pt.compress_frame(data, cfg, engine=engine, device='cpu')",
+        "    out = pt.decompress_frame(f, engine=engine, device='cpu')",
+        "    assert out.tobytes() == data.tobytes(), engine",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+        "             ('jax', 'jaxlib', 'divortio_lz4_tpu'))",
+        "assert not bad, bad",
+    ])
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                    check=True, timeout=300)
+
+
+def _port_sources():
+    files = sorted(glob.glob(os.path.join(REPO, "divortio_lz4_tpu_torch",
+                                          "**", "*.py"), recursive=True))
+    return files + [os.path.join(REPO, "chip_smoke.py"),
+                    os.path.join(REPO, "chip_breakdown.py")]
+
+
+def test_port_sources_import_no_jax():
+    """No module of the port, nor chip_smoke.py or chip_breakdown.py,
+    imports jax or the JAX package, anywhere in the file (an AST scan, so
+    imports inside functions count too)."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib",
+                                          "divortio_lz4_tpu"):
+                    bad.append(f"{os.path.relpath(path, REPO)}:"
+                               f"{node.lineno} {name}")
+    assert len(_port_sources()) > 20
+    assert not bad, bad
+
+
+BLOCK_SIZES = [None, 0, 1, 65535, 65536, 65537, 262144, 262145, 1048576,
+               1048577, 4194304, 4194305, 1 << 30]
+
+
+@pytest.mark.parametrize("block_size", BLOCK_SIZES)
+def test_frame_config_matches_jax(block_size):
+    """The port's FrameConfig (its own copy) resolves every block size and
+    flag combination as the JAX package's does."""
+    for flags in itertools.product([False, True], repeat=4):
+        kw = dict(zip(("block_independence", "content_checksum",
+                       "content_size", "block_checksums"), flags))
+        a = pt.FrameConfig(block_size=block_size, **kw)
+        b = FrameConfig(block_size=block_size, **kw)
+        assert (a.block_id, a.resolved_block_size) == \
+            (b.block_id, b.resolved_block_size)
+        assert dataclasses.asdict(a.with_(favor_ratio=False)) == \
+            dataclasses.asdict(b.with_(favor_ratio=False))
+    assert dataclasses.asdict(pt.FrameConfig()) == \
+        dataclasses.asdict(FrameConfig())
 
 
 @pytest.mark.cuda

@@ -1,0 +1,187 @@
+"""The torch port's greedy encoder (engine="pallas") held against the JAX
+package on the CPU.
+
+The port's plain encode_blocks_pallas must equal the JAX
+encode_blocks_pallas (its Pallas kernel in interpret mode) row for row,
+out_len included; compress_frame(engine="pallas") must equal the JAX
+device_compress_frame(engine="pallas") and the host encoder
+divortio_lz4_tpu.compress byte for byte. Linked frames and dictionaries,
+which JAX sends to its (unported) XLA encoder, raise. Tolerance: exact
+bytes everywhere; each row is compared over [0, out_len), where the TPU
+kernel leaves wild writes past it and the port zeros.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import divortio_lz4_tpu as lz4
+import divortio_lz4_tpu_torch as pt
+from _torch_port import cuda, mixed_payload  # noqa: F401  (cuda: fixture)
+from divortio_lz4_tpu.config import FrameConfig
+from divortio_lz4_tpu.ops import pallas_encode as jax_pe
+from divortio_lz4_tpu.parallel.device import device_compress_frame
+from divortio_lz4_tpu_torch.ops import greedy_encode as pt_ge
+from test_pallas_encode import CASES
+
+KB = 1024
+
+
+def _rows(seed: int):
+    """tests/test_pallas_encode.py's cases, then an empty row, a row
+    shorter than MF_LIMIT, an RLE row and a random row."""
+    rng = np.random.default_rng(seed)
+    return [CASES[k] for k in sorted(CASES)] + [
+        np.zeros(0, np.uint8), np.frombuffer(b"abcabcabca", np.uint8),
+        np.full(9000, 0x41, np.uint8),
+        rng.integers(0, 256, 6000, dtype=np.uint8)]
+
+
+def _batch(rows, B):
+    work = np.zeros((len(rows), B), np.uint8)
+    lens = np.zeros(len(rows), np.int64)
+    for i, r in enumerate(rows):
+        r = r[:B]
+        work[i, : len(r)] = r
+        lens[i] = len(r)
+    return work, lens
+
+
+@pytest.mark.parametrize("B", [4 * KB, 16 * KB])
+def test_plain_encode_matches_jax_kernel(B):
+    work, lens = _batch(_rows(B), B)
+    out, out_lens = pt_ge.encode_blocks_pallas(torch.from_numpy(work),
+                                               torch.from_numpy(lens), B)
+    jo, jl = jax_pe.encode_blocks_pallas(
+        jnp.asarray(work.astype(np.int32)),
+        jnp.asarray(lens.astype(np.int32)), B, True)
+    jo, jl = np.asarray(jo), np.asarray(jl)
+    assert out.shape == (len(work), pt_ge.out_width(B))
+    np.testing.assert_array_equal(out_lens.numpy(), jl)
+    for i, n in enumerate(jl):
+        np.testing.assert_array_equal(out[i, :n].numpy(), jo[i, :n],
+                                      err_msg=f"row {i}")
+        assert not out[i, n:].any()
+    # the reference encoder's bytes, row by row
+    for i, n in enumerate(jl):
+        if lens[i]:
+            want = np.asarray(lz4.compress_raw(work[i, : lens[i]]))
+            np.testing.assert_array_equal(out[i, :n].numpy(), want)
+
+
+def _far_row(n: int, at: int, seed: int) -> np.ndarray:
+    """*n* bytes, zeros but for two 8 KB chunks of random bytes, each
+    written twice: chunk A at 0 and 65535 (a match at the largest offset),
+    chunk B at *at* and at + 65536, where every candidate lies one byte
+    past the window and the window check must refuse it."""
+    rng = np.random.default_rng(seed)
+    row = np.zeros(n, np.uint8)
+    for start, gap in ((0, 65535), (at, 65536)):
+        chunk = rng.integers(1, 256, 8192, dtype=np.uint8)
+        row[start: start + 8192] = chunk
+        row[start + gap: start + gap + 8192] = chunk
+    return row
+
+
+@pytest.mark.parametrize("level", ["blocks", "frame"])
+def test_window_check_in_256k_blocks(level):
+    """Repeats 65535 and 65536 bytes back, in 256 KB blocks: the port's
+    bytes equal the host encoder's (and, for the frame, JAX's)."""
+    rows = [_far_row(200_000, 80_000, 1), _far_row(256 * KB, 150_000, 2)]
+    if level == "blocks":
+        work, lens = _batch(rows, 256 * KB)
+        out, out_lens = pt_ge.encode_blocks_pallas(
+            torch.from_numpy(work), torch.from_numpy(lens), 256 * KB)
+        for i, r in enumerate(rows):
+            want = np.asarray(lz4.compress_raw(r))
+            assert int(out_lens[i]) == len(want), f"row {i}"
+            np.testing.assert_array_equal(out[i, : len(want)].numpy(), want)
+        return
+    cfg = FrameConfig(block_size=256 * KB, block_independence=True,
+                      content_checksum=True)
+    data = rows[0]
+    got = pt.compress_frame(data, cfg, engine="pallas", device="cpu")
+    assert got.tobytes() == np.asarray(lz4.compress(data,
+                                                    config=cfg)).tobytes()
+    want = np.asarray(device_compress_frame(data, cfg, engine="pallas"))
+    assert got.tobytes() == want.tobytes()
+
+
+def _payload(seed: int) -> np.ndarray:
+    """40 KB of JSON-like records, then 70 KB of random bytes: compressed
+    and stored 64 KB blocks in one payload, few probes per block."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([mixed_payload(80_000, seed)[:40_000],
+                           rng.integers(0, 256, 70_000, dtype=np.uint8)])
+
+
+FRAMES = {
+    "64k_content_checksum": FrameConfig(block_size=64 * KB,
+                                        block_independence=True,
+                                        content_checksum=True),
+    "64k_block_checksums": FrameConfig(block_size=64 * KB,
+                                       block_independence=True,
+                                       block_checksums=True),
+    "256k_content_checksum": FrameConfig(block_size=256 * KB,
+                                         block_independence=True,
+                                         content_checksum=True),
+    "256k_block_checksums": FrameConfig(block_size=256 * KB,
+                                        block_independence=True,
+                                        block_checksums=True,
+                                        content_size=False),
+}
+
+
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_frames_match_jax_and_host_encoder(name):
+    cfg = FRAMES[name]
+    data = _payload(21)
+    got = pt.compress_frame(data, cfg, engine="pallas", device="cpu")
+    want = np.asarray(device_compress_frame(data, cfg, engine="pallas"))
+    assert got.tobytes() == want.tobytes()
+    assert got.tobytes() == np.asarray(lz4.compress(data,
+                                                    config=cfg)).tobytes()
+    np.testing.assert_array_equal(
+        pt.decompress_frame(got, engine="pallas", device="cpu"), data)
+
+
+def test_small_frames_match_host_encoder():
+    cfg = FrameConfig(block_size=64 * KB, block_independence=True)
+    frames = pt.compress_frames([b"", b"Hello World", b"xy" * 70_000], cfg,
+                                engine="pallas", device="cpu")
+    for f, x in zip(frames, [b"", b"Hello World", b"xy" * 70_000]):
+        assert f.tobytes() == np.asarray(lz4.compress(x, config=cfg)) \
+            .tobytes()
+
+
+@pytest.mark.parametrize("case", ["linked", "dictionary"])
+def test_linked_and_dictionary_raise(case):
+    data = mixed_payload(10_000, 3)
+    cfg = FrameConfig(block_size=64 * KB,
+                      block_independence=case == "dictionary")
+    d = data[:2000] if case == "dictionary" else None
+    with pytest.raises(NotImplementedError, match="XLA encoder"):
+        pt.compress_frame(data, cfg, dictionary=d, engine="pallas",
+                          device="cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    batches = {
+        64 * KB: _rows(4) + [mixed_payload(65536, s) for s in range(4)]
+        + [rng.integers(0, 256, 65536, dtype=np.uint8)],
+        # past 64 KB the window check decides: repeats 65535 and 65536 back
+        256 * KB: [_far_row(256 * KB, 150_000, 5), mixed_payload(90_000, 6)],
+        4 * 1024 * KB: [_far_row(4 * 1024 * KB, 3 * 1024 * KB, 7)],
+    }
+    for B, rows in batches.items():
+        work, lens = _batch(rows, B)
+        w, ln = torch.from_numpy(work), torch.from_numpy(lens)
+        want = pt_ge.encode_blocks_pallas_plain(w, ln, B)
+        before = pt_ge.encode_blocks_pallas.launches
+        got = pt_ge.encode_blocks_pallas(w.to(cuda), ln.to(cuda), B)
+        assert pt_ge.encode_blocks_pallas.launches == before + 1
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
