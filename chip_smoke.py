@@ -13,8 +13,9 @@ which must be exact.
 
 1. Device and build: the card's name and power limit (nvidia-smi), the
    nvcc builds of csrc/{compact_decode,chain_decode,greedy_encode,
-   token_decode}.cu and the g++ build of csrc/host_kernels.cpp from this
-   checkout (all started together), and ptxas's registers and spills.
+   token_decode,split_decode}.cu and the g++ build of
+   csrc/host_kernels.cpp from this checkout (all started together), and
+   ptxas's registers and spills for every entry point.
 2. Kernel vs plain: the CUDA compact-decode kernel against its plain
    PyTorch version on the card, byte for byte, on the 64 MiB corpus
    frame's blocks (the main-path shape), dense 64 KB blocks, a dictionary
@@ -56,9 +57,27 @@ which must be exact.
    content checksum through compress_frame / decompress_frame with
    engine="pallas" (exact, MB/s median of 3, launch counts), and the 64 MiB
    default frame decoded with engine="pallas".
+9. engine="hybrid": the walk kernel (greedy_encode.cu's second entry
+   point) against its plain version on the same packed chains, byte for
+   byte with its meta lanes: 32 corpus rows, 8 random, one zero, one short
+   and one empty row; 8 rows with a 32 KB dictionary as history; 8 linked
+   rows. Each batch's streams and meta lanes also equal the host
+   serializer's (chain_serialize16_meta_native) over the same exact-word
+   chains. Then the 64 MiB corpus at 64 KB independent blocks through
+   compress_frame(engine="hybrid") (MB/s median of 3, launches): byte-
+   identical to the split engine's frame with exact chains, decoded
+   exactly by both engines, size against the engine="pallas" frame; the
+   kernel timed on the frame's 1024 rows.
+10. split_decode (the placed-literal decode) against its plain version,
+   byte for byte: on the 64 MiB hybrid frame's blocks through
+   parse_block_batch, a dictionary batch, and the main batch with one
+   row's records replaced by random words (the other rows unchanged);
+   decode_wire_blocks of the frame's blocks gives the corpus (launches
+   counted there); the kernel timed on the frame's compressed blocks.
 
 Then a JSON line describing the kernels (with each one's bound: the bytes
-the function must move, without row padding, over the H100's 3.35 TB/s),
+the function must move, without row padding or entries it never reads,
+over the H100's 3.35 TB/s),
 and last the device line. Any
 failed check raises and the exit code is non-zero. Needs an NVIDIA GPU,
 nvcc and g++; imports neither jax nor the JAX package.
@@ -79,7 +98,7 @@ import numpy as np
 MIB = 1 << 20
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM HBM3, 3.35 TB/s (NVIDIA data sheet)
 CUDA_SOURCES = ("compact_decode", "chain_decode", "greedy_encode",
-                "token_decode")
+                "token_decode", "split_decode")
 
 
 def _card() -> str:
@@ -128,6 +147,32 @@ def _bound_ms(*parts) -> float:
 def _wire_bytes(entries) -> int:
     """The compressed bytes of a batch's blocks, without row padding."""
     return sum(len(c) for c, _ in entries)
+
+
+def _match_sequences(stream: bytes) -> int:
+    """The match sequences of one LZ4 block stream: every token but the
+    last, which carries only the trailing literals."""
+    n, i, end = 0, 0, len(stream)
+    while i < end:
+        t = stream[i]
+        i += 1
+        lit = t >> 4
+        if lit == 15:
+            b = 255
+            while b == 255:
+                b = stream[i]
+                i += 1
+                lit += b
+        i += lit
+        if i >= end:
+            break
+        i += 2
+        if t & 15 == 15:
+            while stream[i] == 255:
+                i += 1
+            i += 1
+        n += 1
+    return n
 
 
 def _port_frame(pt, x, cfg, dev, dictionary=None):
@@ -660,6 +705,234 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
     return res
 
 
+def _rows_batch(torch, rows, dev, B=65536, hist=None):
+    """[history | payload] rows on *dev*: (work u8, lens i64, hist_len)."""
+    hl = 0 if hist is None else 65536
+    work = np.zeros((len(rows), hl + B), np.uint8)
+    lens = np.array([len(r) for r in rows], np.int64)
+    for i, r in enumerate(rows):
+        if hist is not None:
+            work[i, :hl] = hist[i]
+        work[i, hl: hl + len(r)] = r
+    return (torch.from_numpy(work).to(dev), torch.from_numpy(lens).to(dev),
+            hl)
+
+
+def _split_exact_frame(pt, corpus, cfg, dev):
+    """The split engine's frame of *corpus* (independent blocks of at most
+    64 KB, no dictionary) with exact-word chains instead of hashed ones."""
+    from divortio_lz4_tpu_torch.ops.split_encode import encode_blocks_chain
+    from divortio_lz4_tpu_torch.parallel.device import (
+        _assemble_frame_host, _EncodeState, _history_rows,
+        _split_encode_fetch)
+    bs = cfg.resolved_block_size
+    work, lens, nb, hl, hs = _history_rows(corpus, bs, None, False)
+    chains = encode_blocks_chain(work, lens, bs, hl, hs, device=dev,
+                                 exact=True)
+    st = _EncodeState(corpus, work, lens, nb, bs, hl, chains)
+    return _assemble_frame_host(corpus, _split_encode_fetch(
+        st, chains.cpu().numpy()), lens, nb, bs, cfg, None)
+
+
+def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
+    """engine="hybrid": the walk kernel against its plain version and the
+    host serializer, then the 64 MiB frame. Returns (JSON fields, the
+    hybrid frame)."""
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.ops.hybrid_encode import (
+        build_chains, build_dist_chains, hybrid_walk, hybrid_walk_plain)
+    from divortio_lz4_tpu_torch.ops.split_encode import (
+        chain_select_serialize_meta)
+    from divortio_lz4_tpu_torch.parallel.device import (_blocks_to_batch,
+                                                        _history_rows)
+
+    rng = np.random.default_rng(seed + 9)
+    B = 65536
+    nblk = len(corpus) // B
+    rows = [corpus[(k * nblk // 32) * B: (k * nblk // 32 + 1) * B]
+            for k in range(32)]
+    rows += [rng.integers(0, 256, B, dtype=np.uint8) for _ in range(8)]
+    rows += [np.zeros(B, np.uint8), corpus[:10], corpus[:0]]
+    dict_hist = np.zeros((8, B), np.uint8)
+    dict_hist[:, B - len(d):] = d
+    lwork, llens, _, _, lstart = _history_rows(corpus[:8 * B], B, None, True)
+    batches = {
+        f"{len(rows)} rows (32 corpus, 8 random, zero, short, empty)":
+            _rows_batch(torch, rows, dev) + (0,),
+        "8 rows with a 32 KB dictionary":
+            _rows_batch(torch, [corpus[(5 + 7 * k) * B: (6 + 7 * k) * B]
+                                for k in range(8)], dev, B, dict_hist)
+            + (B - len(d),),
+        "8 linked rows": (torch.from_numpy(lwork).to(dev),
+                          torch.from_numpy(llens.astype(np.int64)).to(dev),
+                          B, torch.from_numpy(lstart).to(dev)),
+    }
+    err, plain_ms = 0, None
+    for name, (w, ln, hl, hs) in batches.items():
+        chains = build_chains(w, ln, hl, hs)
+        got = hybrid_walk(w, ln, chains, hl)
+        want, p_ms = _timed(torch, lambda: hybrid_walk_plain(w, ln, chains,
+                                                             hl))
+        plain_ms = p_ms if plain_ms is None else plain_ms
+        err = max(err, _compare(torch, f"hybrid_encode {name}", got, want,
+                                tag, 9))
+        # the host serializer over the same exact-word chains (u16 form)
+        d16 = build_dist_chains(w, ln, hl, hs, hashed=False).cpu().numpy()
+        work_np, lens_np = w.cpu().numpy(), ln.cpu().numpy()
+        out_np, ol_np, meta_np = (x.cpu().numpy() for x in got)
+        for i, n in enumerate(lens_np):
+            if not n:
+                continue
+            wk = np.zeros(hl + n + 8, np.uint8)
+            wk[: hl + n] = work_np[i, : hl + n]
+            stream, meta = chain_select_serialize_meta(wk, hl, int(n),
+                                                       d16[i])
+            if (out_np[i, : ol_np[i]].tobytes() != stream.tobytes()
+                    or not np.array_equal(meta_np[i], meta)):
+                raise AssertionError(f"hybrid_encode {name}: row {i} != the "
+                                     "host serializer's stream and meta")
+        print(f"phase 9: hybrid_encode {name}: streams and meta lanes == "
+              f"chain_serialize16_meta_native on the same chains, plain "
+              f"{p_ms:.1f} ms {tag}")
+
+    # -- the engine="hybrid" main path -------------------------------------
+    n = len(corpus)
+    cfg = FrameConfig(block_size=B, block_independence=True,
+                      content_checksum=True)
+    exact = _split_exact_frame(pt, corpus, cfg, dev)
+    pt.compress_frame(corpus, cfg, engine="hybrid", device=dev)   # warm-up
+    hybrid_walk.launches = 0
+    t_enc = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame = pt.compress_frame(corpus, cfg, engine="hybrid", device=dev)
+        t_enc.append(time.perf_counter() - t0)
+    launches = hybrid_walk.launches
+    if launches < 1:
+        raise AssertionError("the engine='hybrid' main path never launched "
+                             "hybrid_encode")
+    if frame.tobytes() != exact.tobytes():
+        raise AssertionError("the hybrid 64 MiB frame differs from the split "
+                             "engine's frame with exact chains")
+    for engine in ("split", "pallas"):
+        _other_engine_exact(pt, frame, corpus, dev, engine,
+                            what="engine='hybrid' 64 MiB frame")
+    enc_s = statistics.median(t_enc)
+    print(f"phase 9: engine='hybrid' 64 MiB frame (64 KB independent, "
+          f"content checksum), {len(frame)} B == the split-exact frame; "
+          f"both engines decode it exactly; ratio vs the engine='pallas' "
+          f"frame {len(frame) / len(ref_frame):.4f} ({len(ref_frame)} B); "
+          f"hybrid_encode launches {launches} {tag}")
+    print(f"phase 9: engine='hybrid': encode {n / enc_s / 1e6:.1f} MB/s "
+          f"(median of 3; {t_enc} s) {tag}")
+    mw, ml, _ = _blocks_to_batch(corpus, B)
+    mw = torch.from_numpy(mw).to(dev)
+    ml = torch.from_numpy(ml.astype(np.int64)).to(dev)
+    chains = torch.cat([build_chains(mw[i: i + 128], ml[i: i + 128], 0, 0)
+                        for i in range(0, mw.shape[0], 128)])
+    mout = hybrid_walk(mw, ml, chains, 0)
+    ms = _cuda_ms(torch, lambda: hybrid_walk(mw, ml, chains, 0), 5)
+    # In: the payload once, the chain entries the walk reads (chain[0] of
+    # every row, then one per match sequence, counted from the streams) and
+    # lengths. Out: streams, lengths and meta lanes.
+    total = int(ml.sum())
+    out_np, ol_np = mout[0].cpu().numpy(), mout[1].cpu().numpy()
+    seqs = sum(_match_sequences(out_np[i, : ol_np[i]].tobytes())
+               for i in range(len(ol_np)))
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, launches=launches,
+               bound_ms=_bound_ms(total, 4 * (mw.shape[0] + seqs), ml,
+                                  int(ol_np.sum()), mout[1], mout[2]))
+    print(f"phase 9: hybrid_encode {mw.shape[0]} x 64 KB (the 64 MiB "
+          f"frame's rows, {seqs} match sequences): kernel {ms:.3f} ms "
+          f"({n / ms / 1e3:.1f} MB/s), plain {plain_ms:.1f} ms on the "
+          f"{len(rows)}-row batch, bound {res['bound_ms']:.4f} ms {tag}")
+    return res, frame
+
+
+def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
+    """split_decode against its plain version on the hybrid frame's blocks,
+    a dictionary batch and one row of random records; decode_wire_blocks
+    of the frame. Returns the kernel's JSON fields."""
+    from divortio_lz4_tpu_torch.ops.split_decode import (
+        decode_blocks_split, decode_blocks_split_plain, decode_wire_blocks,
+        parse_block_batch)
+    from divortio_lz4_tpu_torch.parallel.device import parse_block_index
+
+    rng = np.random.default_rng(seed + 10)
+    B = 65536
+
+    def blocks_of(f):
+        _, blocks, _ = parse_block_index(f)
+        return blocks, [f[o: o + s] for o, s, st in blocks if not st]
+
+    blocks, comps = blocks_of(frame)
+    main = parse_block_batch(comps, B)
+    _, dcomps = blocks_of(dict_frame)
+    dic = parse_block_batch(dcomps, B, [d] * len(dcomps))
+
+    def put(batch):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in batch[:3]] + [B, batch[4]]
+
+    margs, dargs = put(main), put(dic)
+    err = 0
+    outs = {}
+    for name, args in ((f"{len(comps)} x 64 KB (the 64 MiB hybrid frame's "
+                        "compressed blocks)", margs),
+                       (f"{len(dcomps)} blocks with a dictionary", dargs)):
+        got = decode_blocks_split(*args)
+        want, p_ms = _timed(torch, lambda: decode_blocks_split_plain(*args))
+        err = max(err, _compare(torch, f"split_decode {name}", got, want,
+                                tag, 10))
+        outs[name] = (got, p_ms)
+    plain_ms = next(iter(outs.values()))[1]
+    mout = next(iter(outs.values()))[0]
+    h = min(7, len(comps) - 1)
+    nrec = int(main[2][h])
+    hostile = margs[1].clone()
+    hostile[h, :nrec] = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (nrec, 2), dtype=np.int64).astype(np.int32)).to(dev)
+    hargs = [margs[0], hostile] + margs[2:]
+    hgot = decode_blocks_split(*hargs)
+    err = max(err, _compare(torch, f"split_decode, row {h} random records",
+                            hgot, decode_blocks_split_plain(*hargs), tag,
+                            10))
+    others = [i for i in range(len(comps)) if i != h]
+    if not torch.equal(hgot[others], mout[others]):
+        raise AssertionError(f"random records in row {h} changed another row")
+    print(f"phase 10: split_decode hostile row: no fault, the other "
+          f"{len(others)} rows exact {tag}")
+
+    # -- the main path: decode_wire_blocks of the frame's blocks -----------
+    decode_blocks_split.launches = 0
+    t0 = time.perf_counter()
+    decoded = iter(decode_wire_blocks(comps, B, device=dev))
+    dt = time.perf_counter() - t0
+    launches = decode_blocks_split.launches
+    joined = np.concatenate([frame[o: o + s] if st else next(decoded)
+                             for o, s, st in blocks])
+    if joined.tobytes() != corpus.tobytes():
+        raise AssertionError("decode_wire_blocks of the hybrid frame's blocks "
+                             "does not give the corpus")
+    if launches < 1:
+        raise AssertionError("decode_wire_blocks never launched split_decode")
+    print(f"phase 10: decode_wire_blocks of the 64 MiB hybrid frame's "
+          f"{len(comps)} compressed blocks (parse and fetch included): the "
+          f"corpus exactly, {len(corpus) / dt / 1e6:.1f} MB/s; split_decode "
+          f"launches {launches} {tag}")
+    ms = _cuda_ms(torch, lambda: decode_blocks_split(*margs), 5)
+    # literal images without padding (the decoded length of each block),
+    # 8 B per record, decoded bytes out; no history in the main batch
+    decoded_bytes = int(main[3].sum())
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, launches=launches,
+               bound_ms=_bound_ms(decoded_bytes, 8 * int(main[2].sum()),
+                                  decoded_bytes))
+    print(f"phase 10: split_decode {len(comps)} x 64 KB: kernel {ms:.3f} ms "
+          f"({decoded_bytes / ms / 1e3:.1f} MB/s of output), plain "
+          f"{plain_ms:.1f} ms, bound {res['bound_ms']:.4f} ms {tag}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0x51E51A)
@@ -820,6 +1093,10 @@ def main() -> int:
     _phase7(torch, pt, dev, corpus, d, tag)
     pallas = _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
                      default_frame, args.seed, tag)
+    hybrid, hybrid_frame = _phase9(torch, pt, dev, corpus, ref_frame, d,
+                                   args.seed, tag)
+    split = _phase10(torch, pt, dev, corpus, hybrid_frame, dict_frame, d,
+                     args.seed, tag)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "divortio_lz4_tpu"))
@@ -849,6 +1126,11 @@ def main() -> int:
         dict(name="token_decode_linked", source="token_decode.cu",
              replaces="divortio_lz4_tpu/ops/pallas_decode.py:410",
              **pallas["token_decode_linked"]),
+        dict(name="hybrid_encode", source="greedy_encode.cu",
+             replaces="divortio_lz4_tpu/ops/hybrid_encode.py:366", **hybrid),
+        dict(name="split_decode", source="split_decode.cu",
+             replaces="divortio_lz4_tpu/ops/pallas_split_decode.py:91",
+             **split),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,7 +2,7 @@
 device frame codec.
 
 The JAX package ``divortio_lz4_tpu`` stays the reference; this package sits
-beside it and is held against it byte for byte. Two engines are ported:
+beside it and is held against it byte for byte. Three engines are ported:
 
 - ``engine="split"`` (the default) on every frame configuration: 64 KB,
   256 KB, 1 MB and 4 MB blocks, linked or independent, with or without a
@@ -12,12 +12,19 @@ beside it and is held against it byte for byte. Two engines are ported:
   through the reference encoder's own greedy scan (frames byte-identical
   to the host encoder's), and decode of every frame by parsing LZ4 tokens
   on the device.
+- ``engine="hybrid"``: encode only. Blocks up to 64 KB (independent,
+  linked or with a dictionary) go through ``build_chains`` and the
+  hybrid_encode walk kernel; bigger blocks through the split engine's
+  big-block route. Linked frames with block checksums raise
+  NotImplementedError, and so does hybrid decode.
 
   compress_frame, compress_frames       split: chain build on the device
                                         (torch ops) + host serialize (and
                                         host splice over 64 KB blocks);
                                         pallas: greedy_encode kernel + host
-                                        frame assembly
+                                        frame assembly; hybrid: chain build
+                                        + hybrid_encode kernel + host frame
+                                        assembly
   decompress_frame, decompress_frames   split: host record parse + one of
                                         three CUDA kernels (compact, wire,
                                         chain); pallas: token_decode or

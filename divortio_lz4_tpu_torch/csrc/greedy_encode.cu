@@ -1,9 +1,12 @@
-// Reference-identical greedy LZ4 block encoder for Hopper (sm_90a), plain C
-// entry point.
+// The two LZ4 block encoders for Hopper (sm_90a), plain C entry points that
+// share one emitter (emit, put_ext, ext_count, zero_fill):
+//   lz4t_greedy_encode  the reference-identical greedy hash-table scan;
+//   lz4t_hybrid_encode  the hybrid engine's walk over packed chains (see
+//                       hybrid_walk_kernel below).
 //
-// Replaces the TPU kernel _make_kernel of divortio_lz4_tpu/ops/
-// pallas_encode.py:66 (launched by encode_blocks_pallas at :272, the
-// pl.pallas_call at :340). It runs the reference encoder's greedy
+// lz4t_greedy_encode replaces the TPU kernel _make_kernel of
+// divortio_lz4_tpu/ops/pallas_encode.py:66 (launched by encode_blocks_pallas
+// at :272, the pl.pallas_call at :340). It runs the reference encoder's greedy
 // hash-table scan exactly, so a block's bytes equal the host C++ encoder's:
 //   - hash = (u32(word) * 2654435761) >> 18 & 0x3FFF over the 4-byte
 //     little-endian word at s; the 16K-entry table stores pos + 1 (0 =
@@ -181,6 +184,93 @@ greedy_encode_kernel(const uint8_t* __restrict__ work, int64_t row_w,
   if (lane == 0) out_lens[b] = d;
 }
 
+// The hybrid engine's sequence walk. Replaces the TPU kernel _make_kernel
+// of divortio_lz4_tpu/ops/hybrid_encode.py:366 (launched by
+// encode_blocks_hybrid at :536, the pl.pallas_call at :604). Per row, over
+// the packed chain (m << 16 | dist) of build_chains:
+//   - mf_limit = src_len - 12, match_limit = src_len - 5;
+//   - start at (m, dist) = chain[0]; while m < mf_limit, extend from m + 4
+//     (exact-word chains guarantee the first 4 bytes) to the first mismatch
+//     or match_limit, emit the sequence, then jump to chain[m + mlen];
+//   - end with the trailing literal run; an empty row encodes to nothing;
+//   - meta: the trailing token's position, the trailing literal count, and
+//     the last match sequence's stream offset and payload anchor (-1 where
+//     there is none), the TPU kernel's meta lanes 1-4.
+// Bytes are read from the u8 [history | payload] row: the LE32 word array,
+// lane rolls and SMEM chain layout are Mosaic's and are not ported. The
+// output row is exact: zeros past out_len, where the TPU leaves wild
+// 128-byte writes.
+//
+// Design: one warp per row, kWalkWarps rows per CTA, no shared memory.
+// Every lane carries the same walk state (broadcast loads of the chain
+// entry), so control flow is uniform; the warp extends a match 32 bytes a
+// step with __ballot_sync and copies literals together through emit.
+//
+// What bounds it on this card: the dependent latency of each sequence (a
+// chain load, then extension loads that depend on it), not bytes; rows run
+// in parallel, many warps per SM.
+constexpr int kWalkWarps = 4;
+
+__global__ void __launch_bounds__(kLanes * kWalkWarps)
+hybrid_walk_kernel(const uint8_t* __restrict__ work, int64_t nb,
+                   int64_t row_w, int64_t hist_len,
+                   const int64_t* __restrict__ lens,
+                   const uint32_t* __restrict__ chains, int64_t out_w,
+                   uint8_t* __restrict__ out, int64_t* __restrict__ out_lens,
+                   int64_t* __restrict__ meta) {
+  const int lane = threadIdx.x % kLanes;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWalkWarps +
+                    threadIdx.x / kLanes;
+  if (b >= nb) return;  // the whole warp leaves together
+  const int64_t cap = row_w - hist_len;
+  const uint8_t* src = work + b * row_w + hist_len;  // history lies below
+  const uint32_t* chain = chains + b * cap;
+  uint8_t* dst = out + b * out_w;
+  int64_t src_len = lens[b];
+  src_len = src_len < 0 ? 0 : min64(src_len, cap);
+
+  const int64_t mf_limit = src_len - kMfLimit;
+  const int64_t match_limit = src_len - kLastLiterals;
+  uint32_t e = __ldg(chain);
+  int64_t m = e >> 16, dist = e & 0xFFFF;
+  int64_t anchor = 0, d = 0, last_d = -1, last_anchor = -1;
+  while (m < mf_limit) {
+    int64_t k = 0;
+    for (;;) {
+      const int64_t pos = m + kMinMatch + k + lane;
+      const bool neq = pos >= match_limit ||
+                       __ldg(src + pos) != __ldg(src + pos - dist);
+      const unsigned mask = __ballot_sync(0xffffffffu, neq);
+      if (mask) {
+        k += __ffs(mask) - 1;
+        break;
+      }
+      k += kLanes;
+    }
+    last_d = d;
+    last_anchor = anchor;
+    d = emit(dst, d, src + anchor, m - anchor, true, dist, k, lane);
+    anchor = m + kMinMatch + k;
+    e = __ldg(chain + anchor);
+    m = e >> 16;
+    dist = e & 0xFFFF;
+  }
+  const int64_t token_pos = d;
+  const int64_t lit = src_len - anchor;
+  if (src_len > 0)
+    d = emit(dst, d, src + anchor, lit, false, 0, 0, lane);
+  __syncwarp();
+  zero_fill(dst + d, out_w - d, lane);
+  if (lane == 0) {
+    out_lens[b] = d;
+    int64_t* mt = meta + 4 * b;
+    mt[0] = token_pos;
+    mt[1] = lit;
+    mt[2] = last_d;
+    mt[3] = last_anchor;
+  }
+}
+
 }  // namespace
 
 // work u8[nb, row_w] (row b's payload is its first lens[b] bytes); lens
@@ -201,5 +291,27 @@ extern "C" int lz4t_greedy_encode(const void* work, int64_t nb,
       static_cast<const uint8_t*>(work), row_w,
       static_cast<const int64_t*>(lens), out_w, static_cast<uint8_t*>(out),
       static_cast<int64_t*>(out_lens));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// work u8[nb, row_w] ([history | payload] rows, hist_len bytes of history);
+// lens i64[nb]; chains i32[nb, row_w - hist_len] (build_chains, read as
+// u32); out u8[nb, out_w] with out_w >= block_bound(row_w - hist_len);
+// out_lens i64[nb]; meta i64[nb, 4]. One warp per row on *stream*; does
+// not synchronise; returns cudaGetLastError().
+extern "C" int lz4t_hybrid_encode(const void* work, int64_t nb,
+                                  int64_t row_w, int64_t hist_len,
+                                  const void* lens, const void* chains,
+                                  int64_t out_w, void* out, void* out_lens,
+                                  void* meta, void* stream) {
+  if (nb <= 0) return 0;
+  const int64_t grid = (nb + kWalkWarps - 1) / kWalkWarps;
+  hybrid_walk_kernel<<<static_cast<unsigned>(grid), kLanes * kWalkWarps, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(work), nb, row_w, hist_len,
+      static_cast<const int64_t*>(lens),
+      static_cast<const uint32_t*>(chains), out_w,
+      static_cast<uint8_t*>(out), static_cast<int64_t*>(out_lens),
+      static_cast<int64_t*>(meta));
   return static_cast<int>(cudaGetLastError());
 }

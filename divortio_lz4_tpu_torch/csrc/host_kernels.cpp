@@ -4,6 +4,7 @@
 // they need and nothing else; the semantics and error codes are unchanged:
 //   lz4t_xxhash32            (lz4_kernels.cpp:46)   xxHash32 of a buffer
 //   lz4t_scan_pieces         (:714)  sequence-boundary piece scan
+//   lz4t_parse_records       (:796)  placed-literal record parse
 //   lz4t_parse_records2      (:896)  wire-direct record parse
 //   lz4t_chain_serialize16   (:1218) greedy select + serialize over a u16
 //   lz4t_chain_serialize16m  (:1225) chain, plain and with splice meta
@@ -149,6 +150,116 @@ int64_t lz4t_scan_pieces(const uint8_t* src, int64_t src_len, int64_t target,
   wire_len[np_] = p - ps;
   out_len[np_] = o - po;
   return np_ + 1;
+}
+
+// ---------------------------------------------------------------------------
+// Placed-literal record parse
+// ---------------------------------------------------------------------------
+// Parse one block's sequence stream into (a) a PLACED-LITERAL image of the
+// output (literal bytes memcpy'd to their final output offsets; match gaps
+// left untouched) and (b) match records for the all-vector Pallas copy
+// kernel (ops/pallas_split_decode.py): recs[2k] = offset | (mlen << 16),
+// recs[2k+1] = dst (output byte offset of the match).
+//
+// This is the round-3 decode split: the O(wire) serial parse and the
+// bandwidth-bound literal placement run here at host memcpy speed; the
+// device kernel does ONLY 128-lane match copies (the actual serial
+// dependency out[j] = out[j-offset]).
+//
+// RECORD CONTRACT (shaped by measured Mosaic behavior — the interleaved
+// kernel loses its ILP to control-flow barriers, so its body must be
+// straight-line: NO in-kernel periodize loop, NO chunk loop):
+//   * every record has mlen <= 128 AND its full source range already
+//     written when it executes (records run in array order);
+//   * far matches (offset >= 128) longer than 128 split into 128-byte
+//     records — record k's source ends at dst+128k+128-offset <= dst+128k,
+//     written by records < k;
+//   * overlap matches (offset < 128) whose source lies inside the
+//     materialized suffix (this sequence's literals, or a contiguous run
+//     of host-materialized bytes before them) are MATERIALIZED here — the
+//     byte loop below IS LZ4 overlap propagation; RLE and periodic intros
+//     emit no records at all;
+//   * remaining overlap matches become LOG-DOUBLING chains: copy `offset`
+//     bytes at offset, then 2*offset at 2*offset, ... — each record's
+//     source is complete when it runs, and offsets reach >= 128 in
+//     log2(128/offset) records, after which the tail splits as far
+//     matches (period multiples keep out[j] = out[j-k*offset] valid).
+//
+// Validation matches lz4t_decompress_block (reference semantics
+// blockDecompress.js:55-272, same error taxonomy). Returns the record
+// count, or a negative error code.
+int64_t lz4t_parse_records(const uint8_t* src, int64_t src_len, uint8_t* lit,
+                           int64_t out_cap, uint32_t* recs, int64_t rec_cap,
+                           int64_t dict_len, int64_t* out_len_out) {
+  int64_t p = 0, o = 0, nrec = 0;
+  int64_t mat_start = 0;  // start of the contiguous materialized suffix
+  while (p < src_len) {
+    uint32_t token = src[p++];
+    int64_t lit_len = token >> 4;
+    if (lit_len == 15) {
+      uint32_t b;
+      do {
+        if (p >= src_len) return ERR_MALFORMED;
+        b = src[p++];
+        lit_len += b;
+      } while (b == 255);
+    }
+    if (o + lit_len > out_cap) return ERR_OUTPUT_SMALL;
+    if (p + lit_len > src_len) return ERR_MALFORMED;
+    if (lit_len) std::memcpy(lit + o, src + p, (size_t)lit_len);
+    o += lit_len;
+    p += lit_len;
+    if (p >= src_len) break;  // trailing-literals sequence
+
+    if (p + 2 > src_len) return ERR_MALFORMED;
+    int64_t offset = src[p] | (src[p + 1] << 8);
+    p += 2;
+    if (offset == 0) return ERR_OFFSET0;
+    if (offset > o + dict_len) return ERR_DICT_OOB;
+
+    int64_t match_len = token & 0x0F;
+    if (match_len == 15) {
+      uint32_t b;
+      do {
+        if (p >= src_len) return ERR_MALFORMED;
+        b = src[p++];
+        match_len += b;
+      } while (b == 255);
+    }
+    match_len += MIN_MATCH;
+    if (o + match_len > out_cap) return ERR_OUTPUT_SMALL;
+
+    if (offset < 128 && o - offset >= mat_start) {
+      // Host-materialized overlap propagation (source is host-known).
+      for (int64_t t = 0; t < match_len; t++) lit[o + t] = lit[o + t - offset];
+      o += match_len;
+      continue;  // suffix stays contiguous
+    }
+    int64_t off = offset, rem = match_len;
+    while (off < 128 && rem > 0) {
+      // Doubling chain: copy `off` bytes at offset `off`, then double.
+      int64_t take = rem < off ? rem : off;
+      if (nrec >= rec_cap) return -6;
+      recs[2 * nrec] = (uint32_t)off | ((uint32_t)take << 16);
+      recs[2 * nrec + 1] = (uint32_t)o;
+      nrec++;
+      o += take;
+      rem -= take;
+      off *= 2;
+    }
+    while (rem > 0) {
+      int64_t take = rem < 128 ? rem : 128;
+      if (nrec >= rec_cap) return -6;
+      recs[2 * nrec] = (uint32_t)off | ((uint32_t)take << 16);
+      recs[2 * nrec + 1] = (uint32_t)o;
+      nrec++;
+      o += take;
+      rem -= take;
+    }
+    mat_start = o;  // device-copied bytes break the materialized suffix
+  }
+  *out_len_out = o;
+  return nrec;
 }
 
 // ---------------------------------------------------------------------------

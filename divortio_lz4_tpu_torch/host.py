@@ -2,7 +2,7 @@
 
 The wrappers and the error table are copies of
 ``divortio_lz4_tpu/native/__init__.py`` (``xxhash32_native``,
-``scan_pieces_native``, ``parse_records2_native``,
+``scan_pieces_native``, ``parse_records_native``, ``parse_records2_native``,
 ``chain_serialize16_native``, ``chain_serialize16_meta_native``). The
 library is built with g++ at its first use (``_build.py``), never at
 import. Every function validates its buffers in Python before passing
@@ -35,6 +35,9 @@ def _lib() -> ctypes.CDLL:
     lib.lz4t_xxhash32.argtypes = [p, i64, ctypes.c_uint32]
     lib.lz4t_scan_pieces.restype = i64
     lib.lz4t_scan_pieces.argtypes = [p, i64, i64, p, p, p, i64]
+    lib.lz4t_parse_records.restype = i64
+    lib.lz4t_parse_records.argtypes = [p, i64, p, i64, p, i64, i64,
+                                       ctypes.POINTER(i64)]
     lib.lz4t_parse_records2.restype = i64
     lib.lz4t_parse_records2.argtypes = [p, i64, i64, p, i64, i64,
                                         ctypes.POINTER(i64)]
@@ -74,6 +77,34 @@ def scan_pieces_native(src: np.ndarray, target: int):
     if rc < 0:
         raise ValueError(_ERRORS.get(rc, "LZ4: Malformed Input"))
     return wo[:rc], wl[:rc], ol[:rc]
+
+
+def parse_records_native(src: np.ndarray, lit: np.ndarray, out_cap: int,
+                         dict_len: int = 0):
+    """Placed-literal record parse (see lz4t_parse_records): place the
+    block's literal bytes into *lit* at their output offsets and return
+    (recs u32[nrec, 2], out_len), recs[k] = (offset | mlen<<16, dst), each
+    match record at most 128 bytes with its source written before it runs.
+    Raises the host error taxonomy on malformed streams."""
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    if lit.dtype != np.uint8 or not lit.flags.c_contiguous \
+            or not lit.flags.writeable:
+        raise ValueError("lit must be a writable contiguous uint8 array")
+    if len(lit) < out_cap:
+        raise ValueError(f"lit holds {len(lit)} bytes < out_cap={out_cap}")
+    n = len(src)
+    # Every match (>= 3 wire bytes) emits <= 7 doubling records (1+2+...+64
+    # covers 127 bytes); everything past a match's first 127 output bytes
+    # arrives as 128-byte far splits, bounded by out_cap // 128 overall.
+    cap = (n // 3) * 7 + out_cap // 128 + 8
+    recs = np.empty((cap, 2), np.uint32)
+    out_len = ctypes.c_int64(0)
+    rc = int(_lib().lz4t_parse_records(
+        _ptr(src), n, _ptr(lit), out_cap, _ptr(recs), cap, dict_len,
+        ctypes.byref(out_len)))
+    if rc < 0:
+        raise ValueError(_ERRORS.get(rc, "LZ4: Malformed Input"))
+    return recs[:rc], int(out_len.value)
 
 
 def parse_records2_native(src: np.ndarray, out_cap: int, dict_len: int = 0):

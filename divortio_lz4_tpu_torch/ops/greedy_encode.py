@@ -29,9 +29,9 @@ from .._build import load_library
 from ..constants import (HASH_MASK, HASH_MULTIPLIER, HASH_SHIFT,
                          LAST_LITERALS, MF_LIMIT, MIN_MATCH, SKIP_TRIGGER,
                          WINDOW_SIZE, block_bound)
+from .emit import extend, serialize
 from .hybrid_encode import _mul32
 
-EXT_STEP = 256      # bytes the plain version compares per extension step
 CHECK_EVERY = 32    # plain probe steps between checks for a live row
 
 
@@ -95,19 +95,6 @@ def encode_blocks_pallas(work: torch.Tensor, lens: torch.Tensor,
 encode_blocks_pallas.launches = 0
 
 
-def _ext_count(v: torch.Tensor) -> torch.Tensor:
-    """Bytes of the 0xFF-run length extension of a nibble value v."""
-    return torch.where(v >= 15, 1 + (v - 15).clamp(min=0) // 255, 0)
-
-
-def _expand(n: torch.Tensor):
-    """(owner, j): for each i < len(n), the pairs (i, 0..n[i]-1)."""
-    owner = torch.repeat_interleave(torch.arange(len(n), device=n.device), n)
-    j = torch.arange(len(owner), device=n.device) \
-        - (torch.cumsum(n, 0) - n)[owner]
-    return owner, j
-
-
 def encode_blocks_pallas_plain(work: torch.Tensor, lens: torch.Tensor,
                                block_size: int):
     """encode_blocks_pallas in plain PyTorch (any device): one torch step
@@ -133,7 +120,6 @@ def encode_blocks_pallas_plain(work: torch.Tensor, lens: torch.Tensor,
     s = torch.zeros(nb, dtype=torch.int64, device=dev)
     anchor = torch.zeros_like(s)
     search = torch.full_like(s, fresh)
-    t = torch.arange(EXT_STEP, device=dev)
     hits = []          # per probe step: (hit, anchor, lit_len, offset, mlen)
     step = 0
     while nb and (step % CHECK_EVERY or bool((s < mf_limit).any())):
@@ -146,18 +132,7 @@ def encode_blocks_pallas_plain(work: torch.Tensor, lens: torch.Tensor,
         cc = cand.clamp(min=0)
         hit = live & (cand >= 0) & (s != cand) & (s - cand < WINDOW_SIZE) \
             & (words[rows, cc] == words[rows, sc])
-        k = torch.zeros_like(s)
-        done = ~hit
-        while not bool(done.all()):
-            pos = (s + MIN_MATCH + k)[:, None] + t
-            a = byts[rows[:, None], pos.clamp(max=B + 2)]
-            b = byts[rows[:, None], ((cc + MIN_MATCH + k)[:, None] + t)
-                     .clamp(max=B + 2)]
-            neq = (a != b) | (pos >= match_limit[:, None])
-            first = torch.where(neq.any(1), neq.to(torch.int8).argmax(1),
-                                EXT_STEP)
-            k = torch.where(done, k, k + first)
-            done = done | (first < EXT_STEP)
+        k = extend(byts, s + MIN_MATCH, cc + MIN_MATCH, match_limit, hit)
         mlen = MIN_MATCH + k
         hits.append((hit, anchor, s - anchor, s - cand, mlen))
         adv = s + mlen
@@ -165,56 +140,5 @@ def encode_blocks_pallas_plain(work: torch.Tensor, lens: torch.Tensor,
         anchor = torch.where(hit, adv, anchor)
         search = torch.where(hit, fresh, torch.where(live, search + 1,
                                                      search))
-    return _serialize(work, src_len, hits, anchor, ow)
+    return serialize(work, src_len, hits, anchor, ow)
 
-
-def _serialize(work, src_len, hits, anchor, ow):
-    """Write every row's sequences (its hits in probe order, then the
-    trailing literal run) into zeroed rows of width *ow*."""
-    dev = work.device
-    nb = work.shape[0]
-
-    def cols(i):
-        tail = {0: src_len > 0, 1: anchor, 2: src_len - anchor}.get(
-            i, torch.zeros_like(src_len))
-        return torch.stack([h[i] for h in hits] + [tail], 1)
-
-    valid = cols(0)
-    has_match = valid.clone()
-    has_match[:, -1] = False
-    lit_start, lit, offset = cols(1), cols(2), cols(3)
-    mcode = cols(4) - MIN_MATCH
-    ext_l = _ext_count(lit)
-    ext_m = torch.where(has_match, _ext_count(mcode), 0)
-    size = torch.where(valid, 1 + ext_l + lit
-                       + torch.where(has_match, 2 + ext_m, 0), 0)
-    out_lens = size.sum(1)
-    start = torch.cumsum(size, 1) - size
-    row = torch.arange(nb, device=dev)[:, None].expand_as(valid)
-    sel = valid
-    row, start, lit, lit_start = row[sel], start[sel], lit[sel], \
-        lit_start[sel]
-    offset, mcode, ext_l, ext_m = offset[sel], mcode[sel], ext_l[sel], \
-        ext_m[sel]
-    has_match = has_match[sel]
-    out = torch.zeros(nb * ow, dtype=torch.uint8, device=dev)
-    base = row * ow + start
-    token = (lit.clamp(max=15) << 4) \
-        | torch.where(has_match, mcode.clamp(max=15), 0)
-    out[base] = token.to(torch.uint8)
-
-    def put_ext(at, v, n):
-        owner, j = _expand(n)
-        val = torch.where(j < n[owner] - 1, 255, (v[owner] - 15) % 255)
-        out[at[owner] + j] = val.to(torch.uint8)
-
-    put_ext(base + 1, lit, ext_l)
-    owner, j = _expand(lit)
-    out[(base + 1 + ext_l)[owner] + j] = \
-        work[row[owner], lit_start[owner] + j]
-    at = (base + 1 + ext_l + lit)[has_match]
-    off = offset[has_match]
-    out[at] = (off & 0xFF).to(torch.uint8)
-    out[at + 1] = ((off >> 8) & 0xFF).to(torch.uint8)
-    put_ext(at + 2, mcode[has_match], ext_m[has_match])
-    return out.view(nb, ow), out_lens

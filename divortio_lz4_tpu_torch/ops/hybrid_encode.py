@@ -1,12 +1,24 @@
-"""Candidate-chain builder of the split encode, as torch ops.
+"""engine="hybrid" encode and the split encode's chain builder.
 
-Port of ``divortio_lz4_tpu/ops/hybrid_encode.py`` (``_cand_row``,
-``_dist_row``, ``build_dist_chains``) and ``ops/encode_xla.py:_pows``. In
-the JAX package this phase is plain XLA, not Pallas, so its port is torch
-ops: one sort per block row gives every payload position the distance of
-its best previous same-word occurrence (u16, 0 = none). The host serializer
-(``lz4t_chain_serialize16``) then greedy-selects and extends. The chains
-equal the JAX builder's element for element.
+Port of ``divortio_lz4_tpu/ops/hybrid_encode.py``.
+
+- The candidate search (``_cand_row``, ``_dist_row``, ``_chain_row``,
+  ``build_dist_chains``, ``build_chains``) and ``ops/encode_xla.py:_pows``.
+  In the JAX package this phase is plain XLA, not Pallas, so its port is
+  torch ops: one sort per block row gives every payload position the
+  distance of its best previous same-word occurrence. The split encode
+  ships it as u16 distances (``build_dist_chains``, 0 = none) to the host
+  serializer (``lz4t_chain_serialize16``); the hybrid walk takes the packed
+  form ``(next matchable position << 16) | dist`` (``build_chains``). Both
+  equal the JAX builders element for element.
+- The sequence walk, TPU kernel ``_make_kernel`` (``:366``, run by
+  ``encode_blocks_hybrid``, ``pl.pallas_call`` at ``:604``): per sequence,
+  jump to the next matchable position, extend the match, emit the
+  sequence. ``hybrid_walk`` launches its CUDA port (``lz4t_hybrid_encode``
+  in ``csrc/greedy_encode.cu``, sharing the greedy encoder's emitter) on a
+  CUDA tensor or raises; on a CPU tensor it runs ``hybrid_walk_plain``, the
+  same function in plain PyTorch. With exact-word chains its streams are
+  byte-identical to the split encode's with ``exact=True``.
 
 Rows are a batch dimension (the JAX code vmaps one row). The JAX code does
 its hash and fingerprint math in uint32; here every such value lives in an
@@ -19,11 +31,25 @@ unique and ``torch.sort`` reproduces ``jax.lax.sort``'s order exactly.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
-from ..constants import MF_LIMIT, MIN_MATCH, WINDOW_SIZE
+from .._build import load_library
+from .._device import resolve_device
+from ..constants import (LAST_LITERALS, MF_LIMIT, MIN_MATCH, WINDOW_SIZE,
+                         block_bound)
+from .emit import ext_count, extend, serialize
 
 _M32 = 0xFFFFFFFF
+
+# Rows per chain-builder call. Each call holds ~20 int64 [rows, N]
+# temporaries alive at once: at 128 rows of 64 KB that is 64 MB each
+# (128 MB with a 64 KB history prefix), ~1.3-2.6 GB at peak, whatever the
+# frame's size.
+CHAIN_CHUNK_ROWS = 128
 
 # encode_xla.py:56-58 — odd polynomial base and its inverse mod 2**32.
 _B1 = 0x9E3779B1
@@ -204,3 +230,226 @@ def build_dist_chains(work: torch.Tensor, lens: torch.Tensor, hist_len: int,
     hs = torch.as_tensor(hist_start, dtype=torch.int64, device=work.device)
     hs = hs.expand(work.shape[0]).contiguous()
     return _dist_rows(work, lens, hist_len, hs, hashed)
+
+
+def _chain_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,
+                hist_start: torch.Tensor) -> torch.Tensor:
+    """Batched ``_chain_row`` (hybrid_encode.py:79-129): the packed greedy
+    chain, entry a = ``(m << 16) | dist`` for the first matchable payload
+    position m >= a, or -1 (the u32 0xFFFFFFFF, so m reads 0xFFFF) when
+    none remains. Exact-word candidates: a chain match's first MIN_MATCH
+    bytes are equal by construction."""
+    valid, dist = _cand_rows(work, src_len, hist_len, hist_start)
+    cap = work.shape[1] - hist_len
+    ip = torch.arange(cap, dtype=torch.int64, device=work.device)
+    packed = torch.where(valid[:, hist_len:],
+                         (ip << 16) | dist[:, hist_len:], _M32)
+    # Reverse cummin in int64 (torch has no uint32 cummin): the minimum of
+    # (pos << 16 | dist) over positions >= a is the nearest valid one's.
+    chain = torch.cummin(packed.flip(1), 1).values.flip(1)
+    # astype(int32) as JAX wraps it: values >= 2**31 map to value - 2**32.
+    return torch.where(chain >= 1 << 31, chain - (1 << 32), chain) \
+        .to(torch.int32)
+
+
+def build_chains(work: torch.Tensor, lens: torch.Tensor, hist_len: int,
+                 hist_start) -> torch.Tensor:
+    """Packed chains: int[nb, hist_len + B] work -> int32[nb, B], B <=
+    65536 (positions pack in 16 bits). Same contract as the JAX
+    ``build_chains``; *hist_start* is an int or an int[nb]."""
+    B = work.shape[1] - hist_len
+    if B > hybrid_max_bs():
+        raise ValueError(f"payload width {B} > {hybrid_max_bs()}: the chain "
+                         "packs payload positions in 16 bits")
+    work = work.to(torch.int64)
+    lens = lens.to(device=work.device, dtype=torch.int64)
+    hs = torch.as_tensor(hist_start, dtype=torch.int64, device=work.device)
+    hs = hs.expand(work.shape[0]).contiguous()
+    return _chain_rows(work, lens, hist_len, hs)
+
+
+def hybrid_max_bs() -> int:
+    """Largest block the walk takes: the chain packs payload positions as
+    u16 (hybrid_encode.py:526)."""
+    return WINDOW_SIZE
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = load_library("greedy_encode").lz4t_hybrid_encode
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [p, i64, i64, i64, p, p, i64, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_walk(work, lens, chains, hist_len):
+    if work.dtype != torch.uint8 or work.dim() != 2 \
+            or not work.is_contiguous():
+        raise ValueError("work must be a contiguous u8[nb, hist_len + B]")
+    nb, B = work.shape[0], work.shape[1] - hist_len
+    if hist_len < 0 or not 1 <= B <= hybrid_max_bs():
+        raise ValueError(f"payload width {B} (work rows of {work.shape[1]} "
+                         f"bytes, hist_len={hist_len}) is not in [1, "
+                         f"{hybrid_max_bs()}]")
+    if (lens.dtype != torch.int64 or tuple(lens.shape) != (nb,)
+            or not lens.is_contiguous()):
+        raise ValueError("lens must be a contiguous i64[nb]")
+    if (chains.dtype != torch.int32 or tuple(chains.shape) != (nb, B)
+            or not chains.is_contiguous()):
+        raise ValueError(f"chains must be a contiguous i32[nb, {B}]")
+    if lens.device != work.device or chains.device != work.device:
+        raise ValueError("all inputs must be on one device")
+
+
+def hybrid_walk(work: torch.Tensor, lens: torch.Tensor,
+                chains: torch.Tensor, hist_len: int = 0):
+    """Walk each row's packed chain (``build_chains`` of the same rows) and
+    emit its LZ4 block.
+
+    work u8[nb, hist_len + B] ([history | payload] rows); lens i64[nb]
+    payload sizes; chains i32[nb, B]. Returns (out u8[nb, block_bound(B)],
+    out_lens i64[nb], meta i64[nb, 4]): ``out[b, :out_lens[b]]`` is the
+    block's stream and the rest of the row zero (the TPU kernel leaves
+    wild writes there); an empty row encodes to nothing. meta holds the
+    TPU kernel's meta lanes 1-4: the trailing token's position, the
+    trailing literal count, and the last match sequence's stream offset
+    and payload anchor (-1 where there is none). On CUDA the kernel is
+    queued on the current stream and nothing synchronises; ``launches``
+    counts those launches."""
+    _check_walk(work, lens, chains, hist_len)
+    if work.device.type == "cpu":
+        return hybrid_walk_plain(work, lens, chains, hist_len)
+    if work.device.type != "cuda":
+        raise ValueError(f"no hybrid encode for device {work.device}")
+    nb, B = work.shape[0], work.shape[1] - hist_len
+    ow = block_bound(B)
+    out = torch.empty((nb, ow), dtype=torch.uint8, device=work.device)
+    out_lens = torch.empty(nb, dtype=torch.int64, device=work.device)
+    meta = torch.empty((nb, 4), dtype=torch.int64, device=work.device)
+    if nb == 0:
+        return out, out_lens, meta
+    fn = _kernel()
+    with torch.cuda.device(work.device):
+        stream = torch.cuda.current_stream(work.device).cuda_stream
+        rc = fn(work.data_ptr(), nb, work.shape[1], hist_len,
+                lens.data_ptr(), chains.data_ptr(), ow, out.data_ptr(),
+                out_lens.data_ptr(), meta.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"hybrid_encode kernel launch failed: "
+                           f"cudaError {rc}")
+    hybrid_walk.launches += 1
+    return out, out_lens, meta
+
+
+hybrid_walk.launches = 0
+
+
+def hybrid_walk_plain(work: torch.Tensor, lens: torch.Tensor,
+                      chains: torch.Tensor, hist_len: int = 0):
+    """hybrid_walk in plain PyTorch (any device): one batched torch step
+    per sequence, recording each row's hit columns; then one vectorized
+    pass writes every sequence (``emit.serialize``)."""
+    _check_walk(work, lens, chains, hist_len)
+    dev = work.device
+    nb, B = work.shape[0], work.shape[1] - hist_len
+    src_len = lens.clamp(0, B)
+    byts = work.to(torch.int64)
+    chain = chains.to(torch.int64) & _M32
+    rows = torch.arange(nb, device=dev)
+    mf_limit = src_len - MF_LIMIT
+    match_limit = src_len - LAST_LITERALS
+    e = chain[:, 0]
+    m, dist = e >> 16, e & 0xFFFF
+    anchor = torch.zeros_like(m)
+    none = torch.full_like(m, -1)
+    last_anchor, last_size = none, torch.zeros_like(m)
+    hits = []          # per sequence: (hit, anchor, lit_len, offset, mlen)
+    while bool((m < mf_limit).any()):
+        live = m < mf_limit
+        at = hist_len + m + MIN_MATCH
+        mlen = MIN_MATCH + extend(byts, at, at - dist,
+                                  hist_len + match_limit, live)
+        lit = m - anchor
+        hits.append((live, anchor, lit, dist, mlen))
+        size = 3 + ext_count(lit) + lit + ext_count(mlen - MIN_MATCH)
+        last_anchor = torch.where(live, anchor, last_anchor)
+        last_size = torch.where(live, size, last_size)
+        anchor = torch.where(live, m + mlen, anchor)
+        e = chain[rows, anchor.clamp(max=B - 1)]
+        m = torch.where(live, e >> 16, m)
+        dist = torch.where(live, e & 0xFFFF, dist)
+    out, out_lens = serialize(work[:, hist_len:], src_len, hits, anchor,
+                              block_bound(B))
+    tail = src_len - anchor
+    token_pos = torch.where(src_len > 0,
+                            out_lens - 1 - ext_count(tail) - tail, 0)
+    last_d = torch.where(last_anchor >= 0, token_pos - last_size, none)
+    return out, out_lens, torch.stack([token_pos, tail, last_d,
+                                       last_anchor], 1)
+
+
+def encode_blocks_hybrid(work: torch.Tensor, lens: torch.Tensor,
+                         block_size: int, hist_len: int = 0, hist_start=0):
+    """Encode a batch of blocks with the hybrid engine: exact-word packed
+    chains (``build_chains``, CHAIN_CHUNK_ROWS rows a call) then one walk
+    over every row (``hybrid_walk``).
+
+    work u8[nb, hist_len + block_size]; lens i64[nb]; hist_start the first
+    valid history index, an int or an int[nb]. Returns hybrid_walk's
+    (out, out_lens, meta) on the inputs' device. Refuses block_size >
+    hybrid_max_bs() with ValueError."""
+    return hybrid_walk(work, lens,
+                       _chunked_chains(work, lens, block_size, hist_len,
+                                       hist_start), hist_len)
+
+
+def encode_blocks_hybrid_plain(work: torch.Tensor, lens: torch.Tensor,
+                               block_size: int, hist_len: int = 0,
+                               hist_start=0):
+    """encode_blocks_hybrid with the walk's plain version."""
+    return hybrid_walk_plain(work, lens,
+                             _chunked_chains(work, lens, block_size,
+                                             hist_len, hist_start), hist_len)
+
+
+def _chunked_chains(work, lens, block_size, hist_len, hist_start):
+    nb = work.shape[0]
+    if work.dim() != 2 or work.shape[1] != hist_len + block_size:
+        raise ValueError(f"work rows of {work.shape[-1]} bytes do not hold "
+                         f"hist_len={hist_len} + block_size={block_size}")
+    hs = torch.as_tensor(hist_start, dtype=torch.int64, device=work.device)
+    hs = hs.expand(nb).contiguous()
+    chains = torch.empty((nb, block_size), dtype=torch.int32,
+                         device=work.device)
+    for i in range(0, nb, CHAIN_CHUNK_ROWS):
+        rows = slice(i, min(i + CHAIN_CHUNK_ROWS, nb))
+        chains[rows] = build_chains(work[rows], lens[rows], hist_len,
+                                    hs[rows])
+    return chains
+
+
+def encode_block_hybrid_host(data, history=None, block_size=None, *,
+                             device="cuda") -> np.ndarray:
+    """One block in, its LZ4 stream out (numpy), for tests
+    (hybrid_encode.py:617-638): *history* (the last 64 KB count) sits
+    right-aligned in a 64 KB prefix; block_size defaults to len(data)
+    rounded up to 1 KB."""
+    dev = resolve_device(device)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = len(data)
+    B = -(-max(n, 1024) // 1024) * 1024 if block_size is None else block_size
+    use_hist = history is not None and len(history) > 0
+    hist_len = WINDOW_SIZE if use_hist else 0
+    hist_start = 0
+    work = np.zeros((1, hist_len + B), np.uint8)
+    if use_hist:
+        h = np.asarray(history, np.uint8)[-WINDOW_SIZE:]
+        hist_start = WINDOW_SIZE - len(h)
+        work[0, hist_start:hist_len] = h
+    work[0, hist_len: hist_len + n] = data
+    out, out_lens, _ = encode_blocks_hybrid(
+        torch.from_numpy(work).to(dev),
+        torch.tensor([n], dtype=torch.int64, device=dev), B, hist_len,
+        hist_start)
+    return out[0, : int(out_lens[0])].cpu().numpy()

@@ -1,9 +1,10 @@
 """Chain-direct encode: device candidate chains + host select/serialize.
 
 Port of ``divortio_lz4_tpu/ops/split_encode.py`` (``encode_blocks_chain``,
-the u16 branch of ``chain_select_serialize``, and
-``chain_select_serialize_meta``). The device builds one u16 match distance
-per payload position (``build_dist_chains``); the port's host library
+the u16 branch of ``chain_select_serialize``,
+``chain_select_serialize_meta`` and ``encode_block_split_host``). The
+device builds one u16 match distance per payload position
+(``build_dist_chains``); the port's host library
 (``csrc/host_kernels.cpp``, a copy of the JAX package's native functions)
 greedy-selects, extends and serializes each block from its chain. The
 native serializer is required: unlike the JAX module there is no
@@ -15,28 +16,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..constants import block_bound
 from ..host import chain_serialize16_meta_native, chain_serialize16_native
-from .hybrid_encode import build_dist_chains
-
-# Rows per chain-builder call. Each call holds ~20 int64 [rows, N]
-# temporaries alive at once: at 128 rows of 64 KB that is 64 MB each
-# (128 MB with a 64 KB history prefix), ~1.3-2.6 GB at peak, whatever the
-# frame's size.
-CHAIN_CHUNK_ROWS = 128
+from .hybrid_encode import CHAIN_CHUNK_ROWS, build_dist_chains
 
 
 def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
                         hist_len: int = 0, hist_start=0, *,
-                        device) -> torch.Tensor:
+                        device, exact: bool = False) -> torch.Tensor:
     """Build candidate chains for a batch of blocks on *device*.
 
     work: u8[nb, hist_len + block_size] ([history | payload] rows, host);
     lens: i32[nb] payload sizes; hist_start: the first valid history
     index, an int or an int[nb] per row. Returns uint16[nb, block_size] on
-    *device* (match distance per payload position, 0 = none; the hashed
-    production layout), queued asynchronously; fetch once and feed rows to
-    chain_select_serialize."""
+    *device* (match distance per payload position, 0 = none), queued
+    asynchronously; fetch once and feed rows to chain_select_serialize.
+    The default is the hashed production layout; ``exact=True`` gives
+    exact-word chains, whose streams are byte-identical to the hybrid
+    walk's (split_encode.py:58-85)."""
     nb, nw = work.shape
     if nw != hist_len + block_size or block_size % 1024:
         raise ValueError(f"work rows of {nw} bytes do not hold hist_len="
@@ -50,7 +48,8 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
         w = torch.from_numpy(np.ascontiguousarray(work[rows])).to(device)
         ln = torch.from_numpy(np.asarray(lens[rows], np.int64)).to(device)
         h = torch.from_numpy(np.ascontiguousarray(hs[rows])).to(device)
-        chains[rows] = build_dist_chains(w, ln, hist_len, h)
+        chains[rows] = build_dist_chains(w, ln, hist_len, h,
+                                         hashed=not exact)
     return chains
 
 
@@ -79,3 +78,24 @@ def chain_select_serialize_meta(work: np.ndarray, hist_len: int,
     n, meta = chain_serialize16_meta_native(work, hist_len, src_len, dist16,
                                             out)
     return out[:n], meta
+
+
+def encode_block_split_host(data, block_size=None, *, exact: bool = False,
+                            device="cuda") -> np.ndarray:
+    """One block in, its wire bytes out (numpy), for tests
+    (split_encode.py:301-320); an empty block encodes to nothing.
+    block_size defaults to len(data) rounded up to 1 KB."""
+    dev = resolve_device(device)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = len(data)
+    if n == 0:
+        return np.empty(0, np.uint8)
+    if block_size is None:
+        block_size = -(-max(n, 1024) // 1024) * 1024
+    work = np.zeros((1, block_size), np.uint8)
+    work[0, :n] = data
+    chains = encode_blocks_chain(work, np.array([n], np.int64), block_size,
+                                 device=dev, exact=exact).cpu().numpy()
+    padded = np.zeros(block_size + 8, np.uint8)
+    padded[:n] = data
+    return chain_select_serialize(padded, 0, n, chains[0])

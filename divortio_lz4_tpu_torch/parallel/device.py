@@ -1,13 +1,13 @@
-"""Frame codec on a torch device: the split and pallas engines.
+"""Frame codec on a torch device: the split, pallas and hybrid engines.
 
-Port of the ``engine="split"`` and ``engine="pallas"`` paths of
-``divortio_lz4_tpu/parallel/device.py`` (``device_compress_frame(s)``,
-``device_decompress_frame(s)``).
+Port of the ``engine="split"``, ``engine="pallas"`` and ``engine="hybrid"``
+paths of ``divortio_lz4_tpu/parallel/device.py``
+(``device_compress_frame(s)``, ``device_decompress_frame(s)``).
 
 Split engine:
 
-- Encode, blocks of up to 64 KB: ``_compress_independent_split`` or
-  ``_compress_linked_split`` queues the chain builder on the device
+- Encode, blocks of up to 64 KB: ``_compress_split`` queues the chain
+  builder on ``_history_rows``' rows on the device
   (``ops/split_encode.encode_blocks_chain``); ``_split_encode_fetch``
   serializes every block on the host pool and ``_assemble_frame_host``
   builds the frame.
@@ -35,6 +35,18 @@ verdicts match):
   kernel, one chain per independent block or one for the linked frame;
   linked frames of blocks up to 256 KB -> one chain, no scan.
 
+Hybrid engine, encode only (the JAX routes of ``device.py:137-151,
+152-218, 721-792``): blocks of up to 64 KB go through
+``ops/hybrid_encode.encode_blocks_hybrid`` (exact-word packed chains, then
+the walk kernel), as ``[history | payload]`` rows where a dictionary or a
+linked frame gives history, and ``_assemble_frame_host`` (the JAX
+``_host_assemble``: an empty payload makes a frame with no block). Linked
+frames with block checksums go to the JAX package's host frame encoder,
+which the port does not have: they raise. Bigger blocks take the split
+engine's big-block route, as JAX's ``compress_frame_big`` does. Hybrid
+frames decode with either decode engine; JAX decodes engine="hybrid" with
+its XLA decoder, which is not ported, so that engine raises on decode.
+
 ``compress_frames`` / ``decompress_frames`` queue every frame's device
 work first, whatever its configuration, fetch all of it with one
 device-to-host copy, then finish each frame on the host. The single-frame
@@ -42,8 +54,8 @@ entry points are the one-frame case.
 
 The frame host helpers below are copies of the JAX module's (it imports
 jax at module level); their semantics and "LZ4: ..." errors are unchanged.
-The "hybrid" and "xla" engines are not ported yet and raise
-NotImplementedError; nothing falls back to another codec.
+Engines not ported raise NotImplementedError; nothing falls back to
+another codec.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from ..constants import (
 from .._device import resolve_device
 from ..ops.compact_decode import decode_blocks_compact
 from ..ops.greedy_encode import encode_blocks_pallas
+from ..ops.hybrid_encode import encode_blocks_hybrid
 from ..ops.split_decode import from_reference_records, parse_wire_raw
 from ..ops.split_encode import chain_select_serialize, encode_blocks_chain
 from ..ops.token_decode import (TokenChains, decode_blocks_pallas,
@@ -86,7 +99,8 @@ SPLIT_MAX_BS = 65536
 # (device.py:_SPLIT_MAX_BS); bigger ones decode as chains.
 WIRE_MAX_BS = 262144
 # Engines the port runs (ROADMAP.md queue 1 item 9 lists the others).
-ENGINES = ("split", "pallas")
+ENCODE_ENGINES = ("split", "pallas", "hybrid")
+DECODE_ENGINES = ("split", "pallas")
 # The pallas decode router's constants (pallas_decode.py SLACK and
 # VMEM_BUDGET, device.py:_PALLAS_LINKED_MAX_BS): they decide which route a
 # frame takes, and so which errors it can raise.
@@ -252,11 +266,12 @@ def parse_block_index(buf: np.ndarray, verify_checksum: bool = True):
     return header, blocks, pos
 
 
-def _require_engine(engine: str) -> None:
-    if engine not in ENGINES:
+def _require_engine(engine: str, engines: tuple, what: str) -> None:
+    if engine not in engines:
         raise NotImplementedError(
-            f"engine={engine!r} is not ported; engine='split' and "
-            "engine='pallas' are (ROADMAP.md queue 1 item 9: other engines)")
+            f"{what} with engine={engine!r} is not ported; "
+            f"{', '.join(repr(e) for e in engines)} are (ROADMAP.md queue 1 "
+            "item 9: other engines)")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -281,33 +296,26 @@ class _EncodeState(NamedTuple):
     chains: torch.Tensor    # u16[nb, bs] on the device, still queued
 
 
-def _compress_independent_split(raw, bs, window, device) -> _EncodeState:
-    """Queue one independent frame's chain builds on *device*."""
+def _history_rows(raw, bs, window, linked):
+    """A frame's block rows, with the history the encoders see (the JAX
+    ``_compress_independent_split``, ``_compress_linked_split`` and
+    ``_compress_linked`` row builds). Independent blocks see the dictionary,
+    if any, as [64 KB window (right-aligned) | payload]; linked blocks see
+    [64 KB history | payload], the history being the preceding plaintext
+    topped up with the dictionary, so the blocks encode independently of
+    one another. Returns (work u8[nb, hist_len + bs], lens i32[nb],
+    nblocks, hist_len, hist_start: the first valid history index, an int
+    or an i64[nb])."""
     work, lens, nblocks = _blocks_to_batch(raw, bs)
-    if window is not None:
-        # Every independent block sees the dictionary as history: rows are
-        # [64 KB window (right-aligned) | payload].
-        hist_len = WINDOW_SIZE
-        hist_start = WINDOW_SIZE - len(window)
-        hist_block = np.zeros((nblocks, WINDOW_SIZE), np.uint8)
-        hist_block[:, hist_start:] = window
-        work = np.concatenate([hist_block, work], axis=1)
-    else:
-        hist_len = 0
-        hist_start = 0
-    chains = encode_blocks_chain(work, lens, bs, hist_len, hist_start,
-                                 device=device)
-    return _EncodeState(raw, work, lens, nblocks, bs, hist_len, chains)
-
-
-def _compress_linked_split(raw, bs, window, device) -> _EncodeState:
-    """Queue one linked frame's chain builds on *device*: every block's row
-    is [64 KB history | payload], the history being the preceding
-    plaintext topped up with the dictionary, so the blocks encode
-    independently of one another."""
-    work, lens, nblocks = _blocks_to_batch(raw, bs)
-    dict_len = len(window) if window is not None else 0
     W = WINDOW_SIZE
+    if not linked:
+        if window is None:
+            return work, lens, nblocks, 0, 0
+        hist = np.zeros((nblocks, W), np.uint8)
+        hist[:, W - len(window):] = window
+        return np.concatenate([hist, work], axis=1), lens, nblocks, W, \
+            W - len(window)
+    dict_len = len(window) if window is not None else 0
     hist = np.zeros((nblocks, W), np.uint8)
     for i in range(nblocks):
         avail = min(i * bs, W)
@@ -317,10 +325,17 @@ def _compress_linked_split(raw, bs, window, device) -> _EncodeState:
         take = min(dict_len, room)
         if take > 0:
             hist[i, room - take: room] = window[dict_len - take:]
-    work = np.concatenate([hist, work], axis=1)
     valid = np.minimum(np.arange(nblocks, dtype=np.int64) * bs + dict_len, W)
-    chains = encode_blocks_chain(work, lens, bs, W, W - valid, device=device)
-    return _EncodeState(raw, work, lens, nblocks, bs, W, chains)
+    return np.concatenate([hist, work], axis=1), lens, nblocks, W, W - valid
+
+
+def _compress_split(raw, bs, window, linked, device) -> _EncodeState:
+    """Queue one frame's chain builds on *device*."""
+    work, lens, nblocks, hist_len, hist_start = _history_rows(raw, bs, window,
+                                                              linked)
+    chains = encode_blocks_chain(work, lens, bs, hist_len, hist_start,
+                                 device=device)
+    return _EncodeState(raw, work, lens, nblocks, bs, hist_len, chains)
 
 
 def _split_encode_fetch(state: _EncodeState, chains_np: np.ndarray) -> list:
@@ -378,9 +393,8 @@ def _queue_compress(raw, config: FrameConfig, window, dict_id, device
                                         config, dict_id)
         return [big.chains], finish
 
-    queue = (_compress_independent_split if config.block_independence
-             else _compress_linked_split)
-    st = queue(raw, bs, window, device)
+    st = _compress_split(raw, bs, window, not config.block_independence,
+                         device)
 
     def finish(fetched):
         return _assemble_frame_host(raw, _split_encode_fetch(st, fetched[0]),
@@ -395,18 +409,47 @@ def _queue_compress_pallas(raw, config: FrameConfig, device
     ``_blocks_to_batch``, the kernel, ``_host_assemble``). Returns (device
     tensors still queued, finish) as _queue_compress does."""
     bs = config.resolved_block_size
-    n = len(raw)
     work, lens, nblocks = _blocks_to_batch(raw, bs)
     out, out_lens = encode_blocks_pallas(
         _put(work, device), _put(lens.astype(np.int64), device), bs)
+    return [out, out_lens], _finish_rows(raw, lens, nblocks, bs, config,
+                                         None)
 
+
+def _finish_rows(raw, lens, nblocks, bs, config, dict_id) -> Callable:
+    """The finish of a frame whose blocks a kernel encoded into rows: the
+    fetched (rows, lengths) assembled as the JAX ``_host_assemble`` does,
+    where an empty payload makes a frame with no block."""
     def finish(fetched):
         outs, ols = fetched
-        # An empty payload makes a frame with no block (_host_assemble).
-        nb = nblocks if n else 0
+        nb = nblocks if len(raw) else 0
         comps = [outs[b, : int(ols[b])] for b in range(nb)]
-        return _assemble_frame_host(raw, comps, lens, nb, bs, config, None)
-    return [out, out_lens], finish
+        return _assemble_frame_host(raw, comps, lens, nb, bs, config,
+                                    dict_id)
+    return finish
+
+
+def _queue_compress_hybrid(raw, config: FrameConfig, window, dict_id,
+                           device) -> tuple[list, Callable]:
+    """Queue one frame's hybrid encode on *device* (device_compress_frame
+    with engine="hybrid"). Returns (device tensors still queued, finish) as
+    _queue_compress does."""
+    bs = config.resolved_block_size
+    if bs > SPLIT_MAX_BS:
+        # compress_frame_big: the split engine's big-block route
+        return _queue_compress(raw, config, window, dict_id, device)
+    if not config.block_independence and config.block_checksums:
+        raise NotImplementedError(
+            "engine='hybrid' linked frames with block checksums go to the "
+            "JAX package's host frame encoder (divortio_lz4_tpu.frame."
+            "compress_frame, device.py:736-740), which is not ported")
+    work, lens, nblocks, hist_len, hist_start = _history_rows(
+        raw, bs, window, not config.block_independence)
+    out, out_lens, _ = encode_blocks_hybrid(
+        _put(work, device), _put(lens.astype(np.int64), device), bs,
+        hist_len, hist_start)
+    return [out, out_lens], _finish_rows(raw, lens, nblocks, bs, config,
+                                         dict_id)
 
 
 _NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16,
@@ -446,10 +489,12 @@ def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
     "split" takes every configuration; "pallas" (the reference encoder's
     own greedy scan, byte-identical to ``divortio_lz4_tpu.compress``)
     takes independent frames without a dictionary and raises
-    NotImplementedError on the rest, which JAX sends to its XLA encoder.
+    NotImplementedError on the rest, which JAX sends to its XLA encoder;
+    "hybrid" takes every configuration but linked frames with block
+    checksums, which JAX sends to its host frame encoder.
     *device* is "cuda" unless the caller asks for the CPU."""
     dev = resolve_device(device)
-    _require_engine(engine)
+    _require_engine(engine, ENCODE_ENGINES, "encode")
     if engine == "pallas" and (dictionary is not None
                                or not config.block_independence):
         raise NotImplementedError(
@@ -461,6 +506,9 @@ def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
     if engine == "pallas":
         queued = [_queue_compress_pallas(ensure_buffer(d), config, dev)
                   for d in datas]
+    elif engine == "hybrid":
+        queued = [_queue_compress_hybrid(ensure_buffer(d), config, window,
+                                         dict_id, dev) for d in datas]
     else:
         queued = [_queue_compress(ensure_buffer(d), config, window, dict_id,
                                   dev) for d in datas]
@@ -696,7 +744,7 @@ def decompress_frames(frames, verify_checksum: bool = True,
     "pallas"). A frame with a dictID requires *dictionary* and verifies its
     id. *device* is "cuda" unless the caller asks for the CPU."""
     dev = resolve_device(device)
-    _require_engine(engine)
+    _require_engine(engine, DECODE_ENGINES, "decode")
     window, dict_id = _dict_window(dictionary)
     states = [_stage_frame(ensure_buffer(f), verify_checksum, window,
                            dict_id, dev, engine) for f in frames]

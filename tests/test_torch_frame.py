@@ -174,9 +174,14 @@ def test_frames_in_flight_keep_order():
 
 def test_unsupported_configurations_raise():
     data = np.zeros(1000, np.uint8)
+    # "hybrid" encodes (tests/test_torch_hybrid_encode.py); its decode, and
+    # "xla" both ways, are not ported
+    frame = pt.compress_frame(data, CFG, engine="hybrid", device="cpu")
+    assert frame.tobytes() == np.asarray(device_compress_frame(
+        data, CFG, engine="hybrid")).tobytes()
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        pt.compress_frame(data, CFG, engine="xla", device="cpu")
     for engine in ("xla", "hybrid"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            pt.compress_frame(data, CFG, engine=engine, device="cpu")
         with pytest.raises(NotImplementedError, match=f"engine='{engine}'"):
             pt.decompress_frame(lz4.compress(data), engine=engine,
                                 device="cpu")
@@ -219,7 +224,7 @@ def test_import_leaves_jax_out():
     """The port never imports jax or the JAX package, not even its host
     modules: checked in a fresh interpreter (this test process has jax
     loaded by the suite's conftest) after a CPU round trip on both
-    engines."""
+    engines, a hybrid encode and a placed-literal block decode."""
     code = "\n".join([
         "import sys, numpy as np, divortio_lz4_tpu_torch as pt",
         "data = np.frombuffer(b'port round trip ' * 5000, np.uint8)",
@@ -229,6 +234,16 @@ def test_import_leaves_jax_out():
         "    f = pt.compress_frame(data, cfg, engine=engine, device='cpu')",
         "    out = pt.decompress_frame(f, engine=engine, device='cpu')",
         "    assert out.tobytes() == data.tobytes(), engine",
+        "f = pt.compress_frame(data, cfg, engine='hybrid', device='cpu')",
+        "assert pt.decompress_frame(f, device='cpu').tobytes() == "
+        "data.tobytes()",
+        "from divortio_lz4_tpu_torch.ops import split_decode as sd",
+        "from divortio_lz4_tpu_torch.parallel.device import "
+        "parse_block_index",
+        "(o, n, stored), *_ = parse_block_index(f)[1]",
+        "assert not stored",
+        "out = sd.decode_block_split_host(f[o: o + n], 65536, device='cpu')",
+        "assert out.tobytes() == data[:65536].tobytes()",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'divortio_lz4_tpu'))",
         "assert not bad, bad",
