@@ -13,7 +13,15 @@ those of the default frame's route through parallel/device.py:
   D2H of the chains, serialize with splice meta, splice, frame assembly
   with the content xxh32;
 - decode: block index, piece scan, scan + parse, chain arrays, H2D,
-  chain_decode kernel, D2H of the output, content xxh32.
+  chain_decode kernel, D2H of the output, content xxh32;
+- the same frame decoded with engine="pallas" ("decode_pallas"): block
+  index, host scan + rows + H2D, token_decode_linked kernel, D2H of the
+  output and lengths, join, content xxh32.
+
+Both chain kernels' resolve stats (pointer-doubling rounds, scratch bytes
+and, on the record path, chains decoded serially) are printed beside their
+times, and one call of each runs under torch.profiler for its stages'
+device time.
 
 With ``--engine pallas`` the frame is the engine="pallas" one instead: 64 KB
 independent blocks with a content checksum, whose layers are
@@ -92,12 +100,21 @@ def _busy(torch, fn):
     return wall, union / 1e3, sum(per_op.values()), dict(per_op)
 
 
+def _per_kernel(torch, side, name, fn, res):
+    """One call of fn() under torch.profiler: its device ops' ms by name
+    (the stages of a chain kernel), printed and kept in res[side]."""
+    ops = _busy(torch, fn)[3]
+    res[side][f"{name} device ops (ms)"] = ops
+    for op, ms in sorted(ops.items(), key=lambda kv: -kv[1]):
+        print(f"{side}:   {name}: {ms:8.3f} ms  {op[:80]}")
+
+
 def _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res):
     """The default frame's layers (split engine)."""
     from divortio_lz4_tpu_torch.constants import WINDOW_SIZE
     from divortio_lz4_tpu_torch.ops.split_encode import encode_blocks_chain
     from divortio_lz4_tpu_torch.ops.wave_decode import (
-        ChainBatch, _block_out_len, build_chain_arrays, decode_chains,
+        ChainBatch, block_pieces, build_chain_arrays, decode_chains,
         plan_blocks)
     from divortio_lz4_tpu_torch.parallel import bigblock as bb
     from divortio_lz4_tpu_torch.parallel.device import (
@@ -145,7 +162,7 @@ def _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res):
                               lambda: parse_block_index(frame))
     bm = header["block_max"]
     layer("decode", "scan (host pool)", lambda: list(host_pool().map(
-        lambda b: _block_out_len(frame, *b, bm), blocks)))
+        lambda b: block_pieces(frame, *b, bm)[0], blocks)))
     out_lens_d, recs_l = layer("decode", "scan + parse (host pool)",
                                lambda: plan_blocks(frame, blocks, header,
                                                    None))
@@ -158,10 +175,50 @@ def _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res):
     res["decode"]["records"] = int(arrays[2].shape[0])
     out = kernel("decode", "chain_decode", lambda: decode_chains(batch),
                  f", {arrays[2].shape[0]} records")
+    res["decode"]["resolve"] = decode_chains.last.stats()
+    print(f"decode: chain_decode: {res['decode']['resolve']}")
+    _per_kernel(torch, "decode", "chain_decode", lambda: decode_chains(batch),
+                res)
     out_np = layer("decode", "D2H output", lambda: out.cpu().numpy())
     layer("decode", "content xxh32", lambda: xxhash32(out_np, 0))
     if out_np.tobytes() != raw.tobytes():
         raise AssertionError("the layers' output differs from the corpus")
+
+
+def _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel, res):
+    """The default frame's decode with engine="pallas": host scan, one
+    token chain for the linked frame, token_decode_linked."""
+    from divortio_lz4_tpu_torch.ops.token_decode import decode_token_chains
+    from divortio_lz4_tpu_torch.parallel.device import (
+        _fetch_all, parse_block_index, stage_token_chains)
+    from divortio_lz4_tpu_torch.xxh import xxhash32
+
+    side = "decode_pallas"
+    res[side] = {}
+    res[side]["decompress_frame"] = _median_ms(
+        torch, lambda: pt.decompress_frame(frame, engine="pallas",
+                                           device=dev))[0]
+    header, blocks, _ = layer(side, "parse_block_index",
+                              lambda: parse_block_index(frame))
+    batch, starts, out_off = layer(
+        side, "scan + rows + H2D", lambda: stage_token_chains(
+            frame, blocks, header, None, dev, True))
+    out = kernel(side, "token_decode_linked",
+                 lambda: decode_token_chains(batch))
+    stats = decode_token_chains.last.stats()
+    res[side]["resolve"] = stats
+    print(f"{side}: token_decode_linked: {stats}, "
+          f"{batch.stored.shape[0]} rows")
+    _per_kernel(torch, side, "token_decode_linked",
+                lambda: decode_token_chains(batch), res)
+    flat, ols = layer(side, "D2H output + lengths",
+                      lambda: _fetch_all(list(out)))
+    out_np = layer(side, "join", lambda: np.concatenate(
+        [flat[: int(ols.sum())]]))
+    layer(side, "content xxh32", lambda: xxhash32(out_np, 0))
+    if out_np.tobytes() != raw.tobytes():
+        raise AssertionError("the pallas layers' output differs from the "
+                             "corpus")
 
 
 def _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel):
@@ -276,12 +333,18 @@ def main() -> int:
         _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel)
     else:
         _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res)
+        _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel,
+                               res)
 
     # -- device busy share -----------------------------------------------
-    for side, fn in (("encode", lambda: pt.compress_frame(
-                        raw, cfg, engine=engine, device=dev)),
-                     ("decode", lambda: pt.decompress_frame(
-                         frame, engine=engine, device=dev))):
+    profiled = [("encode", lambda: pt.compress_frame(
+                    raw, cfg, engine=engine, device=dev)),
+                ("decode", lambda: pt.decompress_frame(
+                    frame, engine=engine, device=dev))]
+    if engine == "split":
+        profiled.append(("decode_pallas", lambda: pt.decompress_frame(
+            frame, engine="pallas", device=dev)))
+    for side, fn in profiled:
         wall, union, summed, per_op = _busy(torch, fn)
         top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
         share = union / wall if per_op else None    # no device events

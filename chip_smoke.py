@@ -32,12 +32,18 @@ which must be exact.
    frame, 4 independent 1 MB blocks, a linked frame with a dictionary, a
    giant-RLE block and a batch with one chain of random records;
    wire_decode on the 64 MiB corpus's 256 independent 256 KB blocks (the
-   batch phase 6 decodes) and on 32 such blocks with a dictionary.
+   batch phase 6 decodes) and on 32 such blocks with a dictionary. Every
+   chain decode prints its pointer-doubling rounds, chains routed to the
+   serial walk and scratch bytes; the serial count must be 0, and 1 on
+   the random-record batch.
 6. The default frame (FrameConfig(): 4 MB linked blocks) at 64 MiB, with a
    content checksum, through compress_frame / decompress_frame: exact
    round trip, decoded exactly by engine="pallas", size against the
    engine="pallas" frame at 4 MB independent blocks, MB/s (median of 3)
-   and chain_decode's launch count; the engine="pallas" frame at 4 MB
+   and chain_decode's launch count; chain_decode timed on the frame's one
+   chain (the main path's launch shape; its plain version is timed on
+   phase 5's 4 MiB frame), with its rounds, serial chains (0), scratch
+   bytes and the call's device memory; the engine="pallas" frame at 4 MB
    independent blocks decoded exactly by both engines; then once each for
    independent 4 MB, independent 256 KB and linked 64 KB blocks, each with
    its kernel's launch count.
@@ -52,8 +58,14 @@ which must be exact.
    dictionary batch and a batch with one row of random bytes;
    token_decode_linked on a linked 64 KB frame with a dictionary and
    stored blocks, an independent 4 MB-block frame and a linked frame of
-   three 4 MB blocks, each also decoded to its plaintext (timed on the
-   64 MiB default frame). Then 64 MiB at 64 KB independent blocks with a
+   three 4 MB blocks, each also decoded to its plaintext, and that linked
+   frame with random bytes in its last row (kernel == plain, the rows
+   before it exact), each with its resolve stats (rounds, scratch bytes);
+   a linked frame of three incompressible 4 MB blocks (stored rows: one
+   span slot each, so the scratch stays under 4.125 B an output byte);
+   timed on the 64 MiB default frame, with its stats and device memory
+   (its plain version is timed on the linked 64 KB frame). Then
+   64 MiB at 64 KB independent blocks with a
    content checksum through compress_frame / decompress_frame with
    engine="pallas" (exact, MB/s median of 3, launch counts), and the 64 MiB
    default frame decoded with engine="pallas".
@@ -77,8 +89,8 @@ which must be exact.
 
 Then a JSON line describing the kernels (with each one's bound: the bytes
 the function must move, without row padding or entries it never reads,
-over the H100's 3.35 TB/s),
-and last the device line. Any
+over the H100's 3.35 TB/s; where ms and plain_ms come from different
+inputs, an "inputs" key names both), and last the device line. Any
 failed check raises and the exit code is non-zero. Needs an NVIDIA GPU,
 nvcc and g++; imports neither jax nor the JAX package.
 """
@@ -216,6 +228,25 @@ def _chain_batch(frame, window, device):
     return stage_chains(frame, blocks, header, window, device)
 
 
+def _resolve_stats(fn, what: str, serial: int = 0) -> dict:
+    """The stats of *fn*'s last CUDA call (decode_chains or
+    decode_token_chains: rounds, scratch bytes and, for decode_chains,
+    chains decoded serially); raises unless exactly *serial* chains took
+    the record path's serial route (the token path has none)."""
+    stats = fn.last.stats()
+    if stats.get("serial_chains", 0) != serial:
+        raise AssertionError(f"{what}: {stats['serial_chains']} chains took "
+                             f"the serial route, expected {serial}")
+    return stats
+
+
+def _stats_text(stats: dict) -> str:
+    serial = f"{stats['serial_chains']} chains serial, " \
+        if "serial_chains" in stats else ""
+    return (f"{stats['rounds']} pointer-doubling rounds, {serial}"
+            f"scratch {stats['scratch_bytes']} B")
+
+
 def _compare(torch, name, got, want, tag, phase=5) -> int:
     """Byte-for-byte kernel vs plain; returns the max abs difference (0).
     *got* and *want* are tensors or tuples of tensors."""
@@ -280,9 +311,11 @@ def _phase5(torch, pt, dev, corpus, seed, tag):
                                             got, decode_chains_plain(b),
                                             tag))
         outs[name] = got
+        stats = _resolve_stats(decode_chains, f"chain_decode {name}",
+                               1 if name == "hostile" else 0)
         print(f"phase 5: chain_decode {name}: {b.wire_off.shape[0] - 1} "
-              f"chains, {b.rec_words.shape[0]} records, {b.out_total} B "
-              f"{tag}")
+              f"chains, {b.rec_words.shape[0]} records, {b.out_total} B; "
+              f"{_stats_text(stats)} {tag}")
     o1, o2 = int(hb.out_off[1]), int(hb.out_off[2])
     for part in (slice(0, o1), slice(o2, None)):
         if not torch.equal(outs["hostile"][part],
@@ -349,7 +382,8 @@ def _roundtrip(pt, corpus, cfg, dev, reps):
 def _phase6(torch, pt, dev, corpus, tag):
     """The default frame at 64 MiB, then the other block routes once.
     Returns (the default frame, the launch counts of chain_decode (default
-    frame) and wire_decode (256 KB blocks))."""
+    frame) and wire_decode (256 KB blocks), chain_decode's time, bound and
+    resolve stats on the frame's chain)."""
     from divortio_lz4_tpu_torch import FrameConfig
     from divortio_lz4_tpu_torch.ops.compact_decode import decode_blocks_compact
     from divortio_lz4_tpu_torch.ops.wave_decode import decode_chains
@@ -379,6 +413,27 @@ def _phase6(torch, pt, dev, corpus, tag):
     print(f"phase 6: default frame: encode {n / enc_s / 1e6:.1f} MB/s, "
           f"decode {n / dec_s / 1e6:.1f} MB/s (median of 3; enc {t_enc}, "
           f"dec {t_dec} s) {tag}")
+    _resolve_stats(decode_chains, "the default frame's decode", 0)
+    # chain_decode at the main path's launch shape: the frame's one chain
+    batch = _chain_batch(frame, None, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = decode_chains(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    if out.cpu().numpy().tobytes() != corpus.tobytes():
+        raise AssertionError("chain_decode of the default frame's chain "
+                             "does not give the corpus")
+    stats = _resolve_stats(decode_chains, "chain_decode, default frame", 0)
+    ms = _cuda_ms(torch, lambda: decode_chains(batch), 5)
+    chain64 = dict(ms=ms, bound_ms=_bound_ms(*batch[:6], batch.out_total),
+                   records=batch.rec_words.shape[0], **stats)
+    print(f"phase 6: chain_decode, the default frame's chain "
+          f"({chain64['records']} records): kernel {ms:.3f} ms "
+          f"({n / ms / 1e3:.1f} MB/s), bound {chain64['bound_ms']:.4f} ms; "
+          f"{_stats_text(stats)}; device memory of the call {peak} B "
+          f"(output included) {tag}")
     counters = {"chain_decode": decode_chains,
                 "wire_decode": decode_blocks_wire,
                 "compact_decode": decode_blocks_compact}
@@ -400,7 +455,7 @@ def _phase6(torch, pt, dev, corpus, tag):
               f"decodes it exactly; encode {n / t_enc[0] / 1e6:.1f} MB/s, "
               f"decode {n / t_dec[0] / 1e6:.1f} MB/s; {kernel} launches "
               f"{counts[label]} {tag}")
-    return frame, chain_launches, counts["independent 256 KB"]
+    return frame, chain_launches, counts["independent 256 KB"], chain64
 
 
 def _phase7(torch, pt, dev, corpus, d, tag):
@@ -604,16 +659,24 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
     # the default frame's row shape and chaining: 3 linked 4 MB blocks
     low = _json_low(3 * 4 * MIB - 5000, rng)
     dframe = pt.compress_frame(low, FrameConfig(), device=dev)
+    noise = rng.integers(0, 256, 3 * 4 * MIB, dtype=np.uint8)
+    rframe = pt.compress_frame(noise, FrameConfig(), device=dev)
     err, plain_ms = 0, None
     for name, frame, x, window, scan in (
             ("linked 64 KB, dictionary, stored block", lframe, linked, d,
              False),
             ("independent 4 MB blocks", bframe, big, None, True),
             ("linked 4 MB blocks (the default config)", dframe, low, None,
+             True),
+            ("linked 4 MB blocks, incompressible", rframe, noise, None,
              True)):
         header, blocks, _ = parse_block_index(frame)
         if name.startswith("linked 64") and not any(st for *_, st in blocks):
             raise AssertionError("the linked frame has no stored block")
+        if name.endswith("incompressible") and \
+                not all(st for *_, st in blocks):
+            raise AssertionError("the incompressible frame has a "
+                                 "compressed block")
         batch, starts, out_off = stage_token_chains(frame, blocks, header,
                                                     window, dev, scan)
         got = decode_token_chains(batch)
@@ -630,20 +693,67 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
         if joined.tobytes() != x.tobytes():
             raise AssertionError(f"token_decode_linked {name}: the decoded "
                                  "chains do not give the plaintext")
+        stats = _resolve_stats(decode_token_chains,
+                               f"token_decode_linked {name}")
+        if name.endswith("incompressible") and \
+                stats["scratch_bytes"] >= 4 * len(x) + len(x) // 8:
+            raise AssertionError(f"token_decode_linked {name}: scratch "
+                                 f"{stats['scratch_bytes']} B for {len(x)} "
+                                 f"B of stored rows")
         print(f"phase 8: token_decode_linked {name}: {len(frame)} B frame, "
-              f"plain {p_ms:.1f} ms, decodes to its {len(x)} B exactly "
-              f"{tag}")
+              f"plain {p_ms:.1f} ms, decodes to its {len(x)} B exactly; "
+              f"{_stats_text(stats)} {tag}")
+        if name.startswith("linked 4 MB blocks (the"):
+            dbatch, dgot = batch, got
+    # random bytes in the last row (the last scanned piece of the third
+    # linked 4 MB block): kernel == plain, the rows before it exact (its
+    # length may hit the region's cap)
+    batch, got = dbatch, dgot
+    r = batch.stored.shape[0] - 1
+    a, b = int(batch.comp_off[r]), int(batch.comp_off[r + 1])
+    comp = batch.comp.clone()
+    comp[a:b] = torch.from_numpy(rng.integers(0, 256, b - a,
+                                              dtype=np.uint8)).to(dev)
+    hostile = batch._replace(comp=comp)
+    hgot = decode_token_chains(hostile)
+    err = max(err, _compare(torch, f"token_decode_linked, row {r} of the "
+                            "linked 4 MB frame random bytes", hgot,
+                            decode_token_chains_plain(hostile), tag, 8))
+    stats = _resolve_stats(decode_token_chains,
+                           "token_decode_linked hostile row")
+    head = int(got[1][:r].sum())
+    if not (torch.equal(hgot[1][:r], got[1][:r])
+            and torch.equal(hgot[0][:head], got[0][:head])):
+        raise AssertionError(f"random bytes in row {r} changed the rows "
+                             "before it")
+    print(f"phase 8: token_decode_linked hostile row: no fault, rows 0-"
+          f"{r - 1} of {r + 1} exact, row {r} decodes {int(hgot[1][r])} B "
+          f"of {int(got[1][r])}; {_stats_text(stats)} {tag}")
     header, blocks, _ = parse_block_index(default_frame)
     main = stage_token_chains(default_frame, blocks, header, None, dev,
                               True)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     mout = decode_token_chains(main)
-    ms = _cuda_ms(torch, lambda: decode_token_chains(main), 2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    if mout[0][: len(corpus)].cpu().numpy().tobytes() != corpus.tobytes():
+        raise AssertionError("token_decode_linked of the default frame does "
+                             "not give the corpus")
+    stats = _resolve_stats(decode_token_chains,
+                           "token_decode_linked, default frame")
+    print(f"phase 8: token_decode_linked, the default frame: "
+          f"{_stats_text(stats)}; device memory of the call {peak} B "
+          f"(output included) {tag}")
+    ms = _cuda_ms(torch, lambda: decode_token_chains(main), 5)
     # wire bytes, row flags, offsets and lengths in, decoded bytes out
     res["token_decode_linked"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=_bound_ms(*main[:6], int(mout[1].sum()), mout[1]))
     print(f"phase 8: token_decode_linked, the 64 MiB default frame (one "
-          f"chain, {len(blocks)} rows): kernel {ms:.3f} ms "
+          f"chain, {len(blocks)} blocks staged as {main.stored.shape[0]} "
+          f"rows): kernel {ms:.3f} ms "
           f"({len(corpus) / ms / 1e3:.1f} MB/s), plain {plain_ms:.1f} ms on "
           f"the linked 64 KB frame ({len(linked)} B), bound "
           f"{res['token_decode_linked']['bound_ms']:.4f} ms {tag}")
@@ -698,6 +808,8 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
     if res["token_decode_linked"]["launches"] < 1:
         raise AssertionError("the default frame's engine='pallas' decode "
                              "never launched token_decode_linked")
+    _resolve_stats(decode_token_chains, "the default frame's "
+                   "engine='pallas' decode")
     print(f"phase 8: default frame (4 MB linked, split-made) decoded with "
           f"engine='pallas': exact, {n / dt / 1e6:.1f} MB/s ({dt:.3f} s); "
           f"token_decode_linked launches "
@@ -1088,7 +1200,7 @@ def main() -> int:
     print(f"phase 4: peak device memory {peak:.0f} MiB {tag}")
 
     chain, wire = _phase5(torch, pt, dev, corpus, args.seed, tag)
-    default_frame, chain_launches, wire_launches = _phase6(
+    default_frame, chain_launches, wire_launches, chain64 = _phase6(
         torch, pt, dev, corpus, tag)
     _phase7(torch, pt, dev, corpus, d, tag)
     pallas = _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
@@ -1111,8 +1223,14 @@ def main() -> int:
              bound_ms=b_ms),
         dict(name="chain_decode", source="chain_decode.cu",
              replaces="divortio_lz4_tpu/ops/wave_decode.py:60",
-             launches=chain_launches, max_abs_err=chain[0], ms=chain[1],
-             plain_ms=chain[2], bound_ms=chain[3]),
+             launches=chain_launches, max_abs_err=chain[0],
+             ms=chain64["ms"], plain_ms=chain[2],
+             bound_ms=chain64["bound_ms"],
+             inputs="ms and bound_ms: the 64 MiB default frame's chain "
+                    "(checked against the corpus; its plain walk of 2.7M "
+                    "records does not fit the run's time); plain_ms: the "
+                    "4 MiB linked frame; max_abs_err: every phase-5 "
+                    "batch"),
         dict(name="wire_decode", source="chain_decode.cu",
              replaces="divortio_lz4_tpu/ops/pallas_split_decode.py:565",
              launches=wire_launches, max_abs_err=wire[0], ms=wire[1],
@@ -1125,6 +1243,9 @@ def main() -> int:
              **pallas["token_decode"]),
         dict(name="token_decode_linked", source="token_decode.cu",
              replaces="divortio_lz4_tpu/ops/pallas_decode.py:410",
+             inputs="ms and bound_ms: the 64 MiB default frame (checked "
+                    "against the corpus); plain_ms: the linked 64 KB "
+                    "frame; max_abs_err: every phase-8 linked batch",
              **pallas["token_decode_linked"]),
         dict(name="hybrid_encode", source="greedy_encode.cu",
              replaces="divortio_lz4_tpu/ops/hybrid_encode.py:366", **hybrid),
@@ -1141,7 +1262,8 @@ def main() -> int:
         if k["launches"] < 1 or k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: launches {k['launches']}, "
                                  f"max_abs_err {k['max_abs_err']}")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
+    print(json.dumps({"kernels": [{key: k[key] for key in keys
+                                   + (("inputs",) if "inputs" in k else ())}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` (a CUDA kernel, built by nvcc) or
 ``csrc/<name>.cpp`` (host C++, built by g++) exposes plain C entry points
 and is compiled on its own into ``_build/lib<name>-<hash>.so``, where the
-hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here includes PyTorch's headers: a plain C
-interface builds in seconds. A build writes a temporary file and renames it
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source or header rebuilds and an unchanged one is reused. Nothing
+here includes PyTorch's headers: a plain C interface builds in seconds. A
+build writes a temporary file and renames it
 into place, so processes that build the same library at once (test
 workers) never load a half-written one. The build runs when a library is
 first used, never at import, so machines without the CUDA toolkit import
@@ -63,14 +64,24 @@ def _source(name: str) -> tuple[str, list]:
     raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
 
 
+def source_digest(src: str, flags) -> str:
+    """The build hash of *src*: its text, every ``*.cuh`` header beside it
+    (a CUDA source may include any of them) and the compiler *flags*."""
+    h = hashlib.sha256()
+    folder = os.path.dirname(src)
+    headers = sorted(f for f in os.listdir(folder) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(folder, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> str:
     """Path of the built library for csrc/<name>.cu or .cpp (built if
     missing)."""
     src, cmd = _source(name)
-    with open(src, "rb") as f:
-        text = f.read()
-    digest = hashlib.sha256(
-        text + " ".join(cmd[1:]).encode()).hexdigest()[:16]
+    digest = source_digest(src, cmd[1:])
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(lib):
         return lib

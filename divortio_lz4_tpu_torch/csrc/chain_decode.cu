@@ -21,29 +21,51 @@
 // io space [64 KB seed | output]; matches reach back into the seed window
 // and the chain's own earlier output only.
 //
-// Design: one CTA per chain, 128 threads, one thread per byte of a
-// record's span. A chain's output (up to a whole linked frame) does not fit
-// in shared memory, so it lives in device memory and matches read it back
-// from there; the records are staged into shared memory kRecChunk at a
-// time. Per record, every thread reads its byte, the CTA meets at a
-// barrier, every thread writes its byte, and the CTA meets again: the TPU
-// kernels' read-all-then-write order (wave_decode.py:134-145,
-// pallas_split_decode.py:630-648), and __syncthreads() makes the global
-// writes visible to the CTA before the next record reads them. Every TPU
-// clamp is kept (tot, off >= 1, msrc >= 0, dst and src clipped to the
-// chain), so hostile records stay inside their own chain: a wild write
-// would silently corrupt a neighbouring chain. The output region is zeroed
-// first, so bytes no record writes are zeros.
+// The record body, do_record: 128 threads, one per byte of a record's
+// span; every thread reads its byte, the CTA meets at a barrier, every
+// thread writes its byte, and the CTA meets again: the TPU kernels'
+// read-all-then-write order (wave_decode.py:134-145,
+// pallas_split_decode.py:630-648). Every TPU clamp is kept (tot, off >= 1,
+// msrc >= 0, dst and src clipped to the chain), so hostile records stay
+// inside their own chain. wire_decode_kernel walks one 256 KB block per CTA
+// with it.
 //
-// What bounds it on this card: the dependent latency of each record (two
-// CTA barriers, a device-memory read of the match source, a store), not
-// bytes. A linked frame is one chain, so one SM walks all of its records;
-// independent blocks decode in parallel, one CTA each. A shared-memory ring
-// of the last 64 KB, a warp per record without CTA barriers, and several
-// chains per CTA are later work.
+// lz4t_chain_decode does not walk a chain in order: a linked frame is one
+// chain, and one CTA walking 2.7M records of a 64 MiB frame left 131 of
+// the 132 SMs idle (0.24 us a record, two barriers and a read-back each).
+// It resolves the matches in parallel instead (span_resolve.cuh):
+//   A. chain_conform_kernel, one thread per record, applies do_record's
+//      clamps and clears a chain's flag unless (a) every record starts at
+//      or after the end of the one before it and (b) its match source ends
+//      at or before its own start (msrc + tot - ll <= dst). Then every byte
+//      is written once and every match reads final bytes, so the parallel
+//      result is the serial order's. The host parser's chains always
+//      conform (records tile the chain; a record's match never reaches
+//      into itself, csrc/host_kernels.cpp lz4t_parse_records2).
+//   B. chain_spans_kernel, one warp per 32 records, writes each conforming
+//      record's literal bytes into the output and its match bytes' parents
+//      (msrc + i) into the codes;
+//   C, D. pointer doubling and gather (span_resolve.cuh).
+// A chain that does not conform can only hold random words: it decodes
+// with the serial walk (chain_decode_kernel, one CTA per chain, launched
+// last over every chain; a conforming chain's CTA returns at once). So do
+// all chains when the chains' records or outputs overlap.
+//
+// What bounds it on this card: the pointer-doubling rounds, each a stream
+// of the segment's codes plus a dependent read per unresolved byte. On the
+// 64 MiB default frame (2.72M records; NVIDIA H100 80GB HBM3, 700 W;
+// chip_breakdown.py): 3.65 ms, of which 10 working rounds 2.65 ms, spans
+// 0.42, gather 0.20, init 0.11, conform 0.02. For a non-conforming chain,
+// the dependent latency of each record on one SM (~0.24 us a record).
+// ptxas (sm_90a), no spills: chain_spans_kernel 56 registers,
+// chain_conform_kernel 28, chain_check_kernel 32, chain_decode_kernel 40
+// (6 KB smem), wire_decode_kernel 32 (4 KB smem); span_resolve.cuh's
+// round_kernel 18, gather_kernel 28, init_kernel 28.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "span_resolve.cuh"
 
 namespace {
 
@@ -51,6 +73,7 @@ constexpr int kThreads = 128;     // one thread per byte of a record's span
 constexpr int kSpan = 128;        // output bytes one record covers at most
 constexpr int64_t kWin = 65536;   // seed window ahead of a chain's output
 constexpr int kRecChunk = 512;    // records staged in shared memory per pass
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Chain {
   const uint8_t* wire;  // compressed image (read-only)
@@ -60,16 +83,19 @@ struct Chain {
   int64_t cap;
 };
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t min64(int64_t a,
+                                                  int64_t b) {
   return a < b ? a : b;
 }
 
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t max64(int64_t a,
+                                                  int64_t b) {
   return a > b ? a : b;
 }
 
-__device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo,
-                                           int64_t hi) {
+__host__ __device__ __forceinline__ int64_t clamp64(int64_t x,
+                                                    int64_t lo,
+                                                    int64_t hi) {
   return min64(max64(x, lo), hi);
 }
 
@@ -91,60 +117,206 @@ __device__ void zero_out(const Chain& c, int t) {
   for (int64_t i = body_end + t; i < c.cap; i += kThreads) o[i] = 0;
 }
 
-// The record body both kernels share. dst_raw is the record's output
+// One record with every TPU clamp applied, in io positions: tot bytes at
+// dst, the first ll from the image at s, the rest from msrc on.
+struct Rec {
+  int64_t dst;
+  int64_t msrc;
+  int64_t s;
+  int tot;
+  int ll;
+};
+
+__device__ __forceinline__ Rec clamp_record(uint32_t src, uint32_t w1,
+                                            int64_t dst_raw, int64_t cap,
+                                            int64_t wire_len) {
+  Rec r;
+  const int off = max(static_cast<int>(w1 & 0xFFFF), 1);
+  const int ll = (w1 >> 16) & 0xFF;
+  const int ml = w1 >> 24;
+  r.dst = min64(dst_raw, cap) + kWin;
+  r.tot = static_cast<int>(min64(ll + ml, min64(kSpan, kWin + cap - r.dst)));
+  r.ll = min(ll, r.tot);
+  r.msrc = max64(r.dst + r.ll - off, 0);
+  r.s = max64(min64(src, wire_len - kSpan), 0);
+  return r;
+}
+
+// The record body both walks share. dst_raw is the record's output
 // position in the chain; every thread of the CTA calls it.
 __device__ __forceinline__ void do_record(const Chain& c, uint32_t src,
                                           uint32_t w1, int64_t dst_raw,
                                           int t) {
-  const int off = max(static_cast<int>(w1 & 0xFFFF), 1);
-  int ll = (w1 >> 16) & 0xFF;
-  const int ml = w1 >> 24;
-  const int64_t dst = min64(dst_raw, c.cap) + kWin;
-  const int tot = static_cast<int>(
-      min64(ll + ml, min64(kSpan, kWin + c.cap - dst)));
-  ll = min(ll, tot);
-  const int64_t msrc = max64(dst + ll - off, 0);
-  const int64_t s = max64(min64(src, c.wire_len - kSpan), 0);
+  const Rec r = clamp_record(src, w1, dst_raw, c.cap, c.wire_len);
   uint8_t v = 0;
-  if (t < tot) {
-    if (t < ll)
-      v = s + t < c.wire_len ? __ldg(c.wire + s + t) : 0;
+  if (t < r.tot) {
+    if (t < r.ll)
+      v = r.s + t < c.wire_len ? __ldg(c.wire + r.s + t) : 0;
     else
-      v = io_at(c, msrc + t - ll);
+      v = io_at(c, r.msrc + t - r.ll);
   }
   __syncthreads();
-  if (t < tot) c.out[dst - kWin + t] = v;
+  if (t < r.tot) c.out[r.dst - kWin + t] = v;
   __syncthreads();
 }
 
-// Chain ci's offsets are clamped into the buffers like its records, so no
-// offset reaches outside wire, recs or out.
+// Chain ci's offsets clamped into the buffers, as every kernel here clamps
+// them, so no offset reaches outside wire, recs or out.
+struct Bounds {
+  int64_t w0, wlen, r0, r1, o0, cap;
+};
+
+struct Batch {
+  const uint8_t* wire;
+  int64_t wire_total;
+  const int64_t* wire_off;
+  const uint32_t* recs;
+  int64_t n_rec;
+  const int64_t* rec_off;
+  const int64_t* out_off;
+  int64_t n_chains;
+  int64_t out_total;
+
+  __device__ __forceinline__ Bounds bounds(int64_t ci) const {
+    Bounds b;
+    b.w0 = clamp64(wire_off[ci], 0, wire_total);
+    b.wlen = clamp64(wire_off[ci + 1], b.w0, wire_total) - b.w0;
+    b.r0 = clamp64(rec_off[ci], 0, n_rec);
+    b.r1 = clamp64(rec_off[ci + 1], b.r0, n_rec);
+    b.o0 = clamp64(out_off[ci], 0, out_total);
+    b.cap = clamp64(out_off[ci + 1], b.o0, out_total) - b.o0;
+    return b;
+  }
+
+  // The last chain whose first record is at or before r (the chains lie
+  // in order: chain_check_kernel).
+  __device__ __forceinline__ int64_t chain_of(int64_t r) const {
+    int64_t lo = 0, hi = n_chains - 1;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi + 1) >> 1;
+      if (clamp64(rec_off[mid], 0, n_rec) <= r)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    return lo;
+  }
+
+  __device__ __forceinline__ Rec record(int64_t r, const Bounds& b) const {
+    return clamp_record(recs[3 * r], recs[3 * r + 1], recs[3 * r + 2], b.cap,
+                        b.wlen);
+  }
+};
+
+// flags[0] = 1 when a chain's records or output start before the end of
+// the chain before it: every chain then decodes serially.
+__global__ void __launch_bounds__(resolve::kThreads)
+chain_check_kernel(Batch bt, int32_t* flags) {
+  for (int64_t ci = 1 + blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+       ci < bt.n_chains; ci += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const Bounds a = bt.bounds(ci - 1), b = bt.bounds(ci);
+    if (b.r0 < a.r1 || b.o0 < a.o0 + a.cap) flags[0] = 1;
+  }
+}
+
+// Stage A: flags[1 + c] = 1 when chain c does not conform.
+__global__ void __launch_bounds__(resolve::kThreads)
+chain_conform_kernel(Batch bt, int32_t* flags) {
+  if (flags[0]) return;
+  for (int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       r < bt.n_rec; r += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t c = bt.chain_of(r);
+    const Bounds b = bt.bounds(c);
+    if (r < b.r0 || r >= b.r1) continue;
+    const Rec a = bt.record(r, b);
+    bool ok = a.tot == a.ll || a.msrc + (a.tot - a.ll) <= a.dst;
+    if (r > b.r0) {
+      const Rec p = bt.record(r - 1, b);
+      ok = ok && a.dst >= p.dst + p.tot;
+    }
+    if (!ok) flags[1 + c] = 1;
+  }
+}
+
+// Stage B over one segment: a warp takes 32 records, then writes each
+// conforming record's bytes that fall in the segment, 32 at a time.
+__global__ void __launch_bounds__(resolve::kThreads)
+chain_spans_kernel(Batch bt, const int32_t* __restrict__ flags,
+                   resolve::Seg seg) {
+  if (flags[0]) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  for (int64_t base = (blockIdx.x * static_cast<int64_t>(blockDim.x >> 5) +
+                       (threadIdx.x >> 5)) * 32;
+       base < bt.n_rec; base += warps * 32) {
+    const int64_t r = base + lane;
+    bool v = false;
+    int64_t g0 = 0, gs0 = 0, o0 = 0, wi0 = 0, wend = 0;
+    int tot = 0, ll = 0;
+    if (r < bt.n_rec) {
+      const int64_t c = bt.chain_of(r);
+      const Bounds b = bt.bounds(c);
+      if (r >= b.r0 && r < b.r1 && !flags[1 + c]) {
+        const Rec a = bt.record(r, b);
+        o0 = b.o0;
+        g0 = b.o0 + a.dst - kWin;
+        gs0 = b.o0 + a.msrc - kWin;
+        wi0 = b.w0 + a.s;
+        wend = b.w0 + b.wlen;
+        tot = a.tot;
+        ll = a.ll;
+        v = tot > 0 && g0 < seg.s1 && g0 + tot > seg.s0;
+      }
+    }
+    unsigned mask = __ballot_sync(kFull, v);
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int64_t sg0 = __shfl_sync(kFull, g0, src);
+      const int64_t sgs0 = __shfl_sync(kFull, gs0, src);
+      const int64_t so0 = __shfl_sync(kFull, o0, src);
+      const int64_t swi0 = __shfl_sync(kFull, wi0, src);
+      const int64_t swend = __shfl_sync(kFull, wend, src);
+      const int stot = __shfl_sync(kFull, tot, src);
+      const int sll = __shfl_sync(kFull, ll, src);
+      for (int i = lane; i < stot; i += 32) {
+        const int64_t g = sg0 + i;
+        if (!resolve::inside(seg, g)) continue;
+        if (i < sll) {
+          const int64_t wi = swi0 + i;
+          seg.out[g] = wi < swend ? __ldg(bt.wire + wi) : 0;
+        } else {
+          resolve::take(seg, g, so0, sgs0 + (i - sll));
+        }
+      }
+    }
+  }
+}
+
+// The serial walk, for the chains stage A routed here (flags[1 + ci]) or
+// every chain (flags[0]); other CTAs return at once.
 __global__ void __launch_bounds__(kThreads)
-chain_decode_kernel(const uint8_t* __restrict__ wire, int64_t wire_total,
-                    const int64_t* __restrict__ wire_off,
-                    const uint32_t* __restrict__ recs, int64_t n_rec,
-                    const int64_t* __restrict__ rec_off,
-                    const int64_t* __restrict__ out_off, int64_t out_total,
-                    const uint8_t* __restrict__ seed, uint8_t* out) {
+chain_decode_kernel(Batch bt, const uint8_t* __restrict__ seed, uint8_t* out,
+                    const int32_t* __restrict__ flags) {
   __shared__ uint32_t srec[3 * kRecChunk];
   const int64_t ci = blockIdx.x;
   const int t = threadIdx.x;
-  const int64_t w0 = clamp64(wire_off[ci], 0, wire_total);
-  const int64_t o0 = clamp64(out_off[ci], 0, out_total);
+  if (!flags[0] && !flags[1 + ci]) return;
+  const Bounds b = bt.bounds(ci);
   Chain c;
-  c.wire = wire + w0;
-  c.wire_len = clamp64(wire_off[ci + 1], w0, wire_total) - w0;
+  c.wire = bt.wire + b.w0;
+  c.wire_len = b.wlen;
   c.seed = seed;
-  c.out = out + o0;
-  c.cap = clamp64(out_off[ci + 1], o0, out_total) - o0;
+  c.out = out + b.o0;
+  c.cap = b.cap;
   zero_out(c, t);
 
-  const int64_t r0 = clamp64(rec_off[ci], 0, n_rec);
-  const int64_t r1 = clamp64(rec_off[ci + 1], r0, n_rec);
-  for (int64_t c0 = r0; c0 < r1; c0 += kRecChunk) {
-    const int n = static_cast<int>(min64(r1 - c0, kRecChunk));
+  for (int64_t c0 = b.r0; c0 < b.r1; c0 += kRecChunk) {
+    const int n = static_cast<int>(min64(b.r1 - c0, kRecChunk));
     __syncthreads();  // the zeroing, or the previous chunk, is done
-    for (int i = t; i < 3 * n; i += kThreads) srec[i] = recs[3 * c0 + i];
+    for (int i = t; i < 3 * n; i += kThreads) srec[i] = bt.recs[3 * c0 + i];
     __syncthreads();
     for (int k = 0; k < n; ++k)
       do_record(c, srec[3 * k], srec[3 * k + 1], srec[3 * k + 2], t);
@@ -191,24 +363,49 @@ wire_decode_kernel(const uint8_t* __restrict__ wire, int64_t wire_cap,
 // Chains: wire u8[wire_total]; wire_off, rec_off, out_off i64[nc + 1]
 // (chain c owns wire[wire_off[c]:wire_off[c+1]], records
 // recs[rec_off[c]:rec_off[c+1]] and out[out_off[c]:out_off[c+1]]); recs
-// u32[n_rec, 3]; out u8[out_total]; seed u8[65536] shared by every chain,
-// or null for zeros. Launches one CTA per chain on *stream*, does not
-// synchronise, and returns cudaGetLastError().
+// u32[n_rec, 3]; out u8[out_total], every byte written; seed u8[65536]
+// shared by every chain, or null for zeros. Scratch: code i32[seg_len];
+// flags i32[1 + nc + ceil(out_total / seg_len) * rounds], zeroed (layout
+// in ops/resolve.py, ResolveRun). Queues stages A-D segment by segment,
+// then the serial walk, on *stream*; does not synchronise; returns
+// cudaGetLastError().
 extern "C" int lz4t_chain_decode(const void* wire, int64_t wire_total,
                                  const void* wire_off, const void* recs,
                                  int64_t n_rec, const void* rec_off,
                                  const void* out_off, int64_t n_chains,
                                  const void* seed, void* out,
-                                 int64_t out_total, void* stream) {
+                                 int64_t out_total, void* code,
+                                 int64_t seg_len, void* flags, int rounds,
+                                 void* stream) {
   if (n_chains <= 0) return 0;
-  chain_decode_kernel<<<static_cast<unsigned>(n_chains), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(wire), wire_total,
-      static_cast<const int64_t*>(wire_off),
-      static_cast<const uint32_t*>(recs), n_rec,
-      static_cast<const int64_t*>(rec_off),
-      static_cast<const int64_t*>(out_off), out_total,
-      static_cast<const uint8_t*>(seed), static_cast<uint8_t*>(out));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Batch bt{static_cast<const uint8_t*>(wire), wire_total,
+                 static_cast<const int64_t*>(wire_off),
+                 static_cast<const uint32_t*>(recs), n_rec,
+                 static_cast<const int64_t*>(rec_off),
+                 static_cast<const int64_t*>(out_off), n_chains, out_total};
+  int32_t* f = static_cast<int32_t*>(flags);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const uint8_t* sd = static_cast<const uint8_t*>(seed);
+  int32_t* cd = static_cast<int32_t*>(code);
+  chain_check_kernel<<<resolve::blocks_for(n_chains), resolve::kThreads, 0,
+                       st>>>(bt, f);
+  if (n_rec > 0)
+    chain_conform_kernel<<<resolve::blocks_for(n_rec), resolve::kThreads, 0,
+                           st>>>(bt, f);
+  int32_t* rflags = f + 1 + n_chains;
+  for (int64_t s0 = 0; s0 < out_total; s0 += seg_len, rflags += rounds) {
+    const int64_t n = min64(seg_len, out_total - s0);
+    const resolve::Seg seg{o, cd, s0, s0 + n, sd};
+    resolve::init_kernel<<<resolve::blocks_for(n), resolve::kThreads, 0,
+                           st>>>(o, cd, s0, n);
+    if (n_rec > 0)
+      chain_spans_kernel<<<resolve::blocks_for(n_rec),
+                           resolve::kThreads, 0, st>>>(bt, f, seg);
+    resolve::resolve_segment(o, cd, s0, n, rflags, rounds, st);
+  }
+  chain_decode_kernel<<<static_cast<unsigned>(n_chains), kThreads, 0, st>>>(
+      bt, sd, o, f);
   return static_cast<int>(cudaGetLastError());
 }
 

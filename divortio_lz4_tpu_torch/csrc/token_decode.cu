@@ -29,25 +29,65 @@
 // (literal and match spans tile the output), and bytes past the decoded
 // output are zeros.
 //
-// Design: one CTA of one warp per block (lz4t_token_decode) or per chain
-// (lz4t_token_decode_linked). Every lane parses the same token stream in
-// lockstep (broadcast loads of the compressed bytes); the warp copies a
-// literal run, then a match, 32 bytes a step. A match reads only
-// [o - offset, o), which is complete before it starts, so out[o + i] =
-// io[o - offset + i % offset] is the exact LZ4 overlap copy for every
-// offset and needs no ordering inside the match; __syncwarp() orders one
-// sequence's writes before the next one's reads. Outputs live in device
-// memory. The TPU's rows per grid step, packed SMEM stream copies, i32
-// widening, lane rolls, pow2 M buckets and chunking exist for Mosaic and
-// are not ported; a chain is one CTA with no window carried between calls.
+// interpret() hands each parsed sequence to a sink: WriteSink copies it
+// into the output at once (lz4t_token_decode), SpanSink records it as a
+// span and writes nothing (lz4t_token_decode_linked).
 //
-// What bounds it on this card: the dependent latency of each sequence (the
-// token and length reads, a barrier, match reads of output written just
-// before), not bytes. Independent blocks run in parallel; a linked chain
-// decodes on one SM.
+// lz4t_token_decode: one CTA of one warp per block. Every lane parses the
+// same token stream in lockstep (broadcast loads of the compressed bytes);
+// the warp copies a literal run, then a match, 32 bytes a step. A match
+// reads only [o - offset, o), which is complete before it starts, so
+// out[o + i] = io[o - offset + i % offset] is the exact LZ4 overlap copy
+// for every offset; __syncwarp() orders one sequence's writes before the
+// next one's reads. Bound by the dependent latency of each sequence;
+// blocks run in parallel.
+//
+// lz4t_token_decode_linked does not walk a chain in order: a linked frame
+// is one chain, and one warp walking its 2M sequences left 131 of the 132
+// SMs idle. It resolves the matches in parallel (span_resolve.cuh):
+//   A. token_rows_kernel (lz4t_token_slots, one CTA) gives each row its
+//      span slots, 1 for a stored row and len / 3 + 1 for a compressed one
+//      (every sequence but the last consumes a token and two offset
+//      bytes), by a prefix sum; the host reads their total, the call's one
+//      sync, and sizes the span scratch to it. The kernel also reads
+//      row_off and out_off as their running maxima, clamped into the row
+//      and output arrays, so no two chains share a row or an output byte
+//      (the offsets are non-decreasing on every batch the port builds).
+//      token_parse_kernel, one warp per row: the row alone, at a row-local
+//      cursor with limit block_size, into spans (o, wire p, lit, mlen,
+//      offset), without writing output. The parse never reads output.
+//      token_fix_kernel, one warp per chain, scans the rows' lengths into
+//      cursors. A row parsed alone equals the serial parse while cursor +
+//      n <= 64 KB + cap (the cap clamp cannot bind), so only the first row
+//      that would pass its chain's region is parsed again, with the room
+//      left; every row after it decodes to 0 bytes, as in the serial walk.
+//      The offset > o clamp never fires in the linked entry (o >= 65536 >
+//      offset) and is kept.
+//   B. token_spans_kernel, one warp per 32 span slots: literal bytes go
+//      straight to the output; match byte i takes parent o - offset +
+//      i % offset, the kernel's own periodic source, so an offset-1 run of
+//      any length is one hop to its literal. A span with over 1 KB in the
+//      segment (a 4 MB literal run of incompressible bytes, a long zero
+//      run) goes to a list that token_long_kernel spreads over the grid
+//      in 4 KB chunks, so no warp walks megabytes alone.
+//   C, D. pointer doubling and gather (span_resolve.cuh).
+//
+// What bounds the linked entry: the pointer-doubling rounds, then the
+// parse, which is the dependent latency of each sequence on one warp,
+// rows in parallel: with one row per 4 MB block the parse took 104.7 ms,
+// so the host stages a scanned block as its ~64 KB pieces
+// (parallel/device.py, stage_token_chains). On the 64 MiB default frame
+// (978 rows; NVIDIA H100 80GB HBM3, 700 W; chip_breakdown.py): 7.08 ms,
+// of which rounds 2.63, parse 2.38, spans 0.72, long spans 0.30, gather
+// 0.21, fix 0.15, init 0.11, row slots 0.004; scratch 370 MB, 98 MB of
+// it span slots. ptxas (sm_90a), no spills: token_rows_kernel 32
+// registers (512 B shared), token_parse_kernel 38, token_fix_kernel 44,
+// token_spans_kernel 40, token_long_kernel 40, token_decode_kernel 62.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "span_resolve.cuh"
 
 namespace {
 
@@ -55,16 +95,19 @@ constexpr int kLanes = 32;
 constexpr int64_t kWin = 65536;       // history / window ahead of the output
 constexpr int64_t kHalfSlack = 128;   // SLACK // 2 of the TPU kernel
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t min64(int64_t a,
+                                                  int64_t b) {
   return a < b ? a : b;
 }
 
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t max64(int64_t a,
+                                                  int64_t b) {
   return a > b ? a : b;
 }
 
-__device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo,
-                                           int64_t hi) {
+__host__ __device__ __forceinline__ int64_t clamp64(int64_t x,
+                                                    int64_t lo,
+                                                    int64_t hi) {
   return min64(max64(x, lo), hi);
 }
 
@@ -116,9 +159,60 @@ __device__ __forceinline__ int64_t read_ext(const Comp& c, int64_t* p) {
   return sum;
 }
 
-// _interpret_block: decode c into io from o_start, never past o_limit.
-// Every lane of the warp calls it; returns the final output cursor.
-__device__ int64_t interpret(const Comp& c, const Io& io, int64_t o_start,
+// One parsed sequence goes to the sink as (o, lit_at, lit, offset, mlen):
+// lit literal bytes at output position o from the row's byte lit_at, then
+// mlen match bytes at o + lit, each from (o + lit) - offset + i % offset.
+
+// Copies every sequence into the io space at once.
+struct WriteSink {
+  Io io;
+  __device__ __forceinline__ void sequence(const Comp& c, int64_t o,
+                                           int64_t lit_at, int64_t lit,
+                                           int64_t offset, int64_t mlen,
+                                           int lane) const {
+    for (int64_t i = lane; i < lit; i += kLanes)
+      io.write(o + i, static_cast<uint8_t>(c.at(lit_at + i)));
+    __syncwarp();   // the literals are visible to the match's reads
+    const int64_t om = o + lit;
+    const int64_t from = om - offset;
+    const uint32_t off32 = static_cast<uint32_t>(offset > 0 ? offset : 1);
+    for (int64_t i = lane; i < mlen; i += kLanes)
+      io.write(om + i, io.read(from + static_cast<uint32_t>(i) % off32));
+    __syncwarp();   // the match is visible to the next sequence
+  }
+};
+
+// Records every sequence that writes a byte as a span (o - o_base, lit_at,
+// lit, mlen) and its offset; lane 0 stores. cap is the row's slot count
+// (token_rows_kernel), which holds every span the row can give; the
+// k < cap test keeps a store inside the row's slots all the same.
+struct SpanSink {
+  uint4* spans;
+  uint16_t* offs;
+  int64_t cap;
+  int64_t o_base;
+  int64_t k;
+  __device__ __forceinline__ void sequence(const Comp&, int64_t o,
+                                           int64_t lit_at, int64_t lit,
+                                           int64_t offset, int64_t mlen,
+                                           int lane) {
+    if (lit == 0 && mlen == 0) return;
+    if (lane == 0 && k < cap) {
+      spans[k] = make_uint4(static_cast<uint32_t>(o - o_base),
+                            static_cast<uint32_t>(lit_at),
+                            static_cast<uint32_t>(lit),
+                            static_cast<uint32_t>(mlen));
+      offs[k] = static_cast<uint16_t>(offset);
+    }
+    ++k;
+  }
+};
+
+// _interpret_block: parse c from output position o_start, never past
+// o_limit, handing each sequence to the sink. Every lane of the warp calls
+// it; returns the final output cursor.
+template <class Sink>
+__device__ int64_t interpret(const Comp& c, Sink& sink, int64_t o_start,
                              int64_t o_limit, int lane) {
   int64_t p = 0;
   int64_t o = o_start;
@@ -128,26 +222,20 @@ __device__ int64_t interpret(const Comp& c, const Io& io, int64_t o_start,
     int64_t lit = token >> 4;
     if (lit == 15) lit += read_ext(c, &p);
     lit = max64(min64(min64(lit, o_limit - o), c.len + kHalfSlack - p), 0);
-    for (int64_t i = lane; i < lit; i += kLanes)
-      io.write(o + i, static_cast<uint8_t>(c.at(p + i)));
+    const int64_t lit_at = p;
     p += lit;
-    o += lit;
+    const int64_t om = o + lit;
 
     const bool valid = p < c.len;
     const int64_t offset = c.at(p) | (c.at(p + 1) << 8);
     int64_t p2 = p + 2;
     int64_t ml = token & 15;
     if (valid && ml == 15) ml += read_ext(c, &p2);
-    int64_t mlen = valid ? min64(ml + 4, o_limit - o) : 0;
-    if (offset < 1 || offset > o) mlen = 0;
-    __syncwarp();   // the literals are visible to the match's reads
-    const int64_t from = o - offset;
-    const uint32_t off32 = static_cast<uint32_t>(offset > 0 ? offset : 1);
-    for (int64_t i = lane; i < mlen; i += kLanes)
-      io.write(o + i, io.read(from + static_cast<uint32_t>(i) % off32));
-    __syncwarp();   // the match is visible to the next sequence
+    int64_t mlen = valid ? min64(ml + 4, o_limit - om) : 0;
+    if (offset < 1 || offset > om) mlen = 0;
+    sink.sequence(c, o, lit_at, lit, offset, mlen, lane);
     if (valid) p = p2;
-    o += mlen;
+    o = om + mlen;
   }
   return o;
 }
@@ -160,53 +248,339 @@ token_decode_kernel(const uint8_t* __restrict__ comp, int64_t row_w,
   const int64_t b = blockIdx.x;
   const int lane = threadIdx.x;
   const Comp c{comp + b * row_w, clamp64(lens[b], 0, row_w)};
-  const Io io{hist, hist != nullptr ? kWin : 0, out + b * block_size};
-  const int64_t o = interpret(c, io, io.base, io.base + block_size, lane);
-  const int64_t n = o - io.base;
+  WriteSink sink{{hist, hist != nullptr ? kWin : 0, out + b * block_size}};
+  const int64_t o = interpret(c, sink, sink.io.base,
+                              sink.io.base + block_size, lane);
+  const int64_t n = o - sink.io.base;
   zero_fill(out + b * block_size + n, block_size - n, lane);
   if (lane == 0) out_lens[b] = n;
 }
 
-// Chain ci's offsets are clamped into the buffers, so no offset reaches
-// outside comp, the row arrays or out.
+// The linked entry's inputs (see lz4t_token_decode_linked).
+struct Chains {
+  const uint8_t* comp;
+  int64_t comp_total;
+  const int64_t* comp_off;
+  const uint8_t* stored;
+  int64_t n_rows;
+  const int64_t* row_off;
+  int64_t n_chains;
+  const int64_t* out_off;
+  int64_t out_total;
+  int64_t block_size;
+
+  // Row r's wire bytes, clamped into comp (none when they end before they
+  // start).
+  __device__ __forceinline__ Comp row(int64_t r) const {
+    const int64_t w0 = clamp64(comp_off[r], 0, comp_total);
+    const int64_t e = clamp64(comp_off[r + 1], 0, comp_total);
+    return Comp{comp + w0, max64(e, w0) - w0};
+  }
+};
+
+// Device scratch of the linked entry. The i64 parts lie in one buffer,
+// rows i64[5 * n_rows + 2 * n_chains + 3], in this order.
+struct Scratch {
+  uint4* spans;        // [n_slots] (o, lit_at, lit, mlen)
+  uint16_t* offs;      // [n_slots]
+  int64_t* slot0;      // [n_rows + 1] row r's slots [slot0[r], slot0[r + 1])
+  int64_t* ro;         // [n_chains + 1] row_off's running maximum, clamped
+  int64_t* oo;         // [n_chains + 1] out_off's
+  int64_t* nspans;     // [n_rows] spans the row recorded
+  int64_t* nloc;       // row length parsed alone
+  int64_t* row_base;   // output position of the row's first byte, or -1
+  int64_t* row_o0;     // its chain's first output byte
+
+  // The row that owns slot j (every row owns at least one).
+  __device__ __forceinline__ int64_t row_of(int64_t j, int64_t n_rows) const {
+    int64_t lo = 0, hi = n_rows - 1;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi + 1) >> 1;
+      if (slot0[mid] <= j)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    return lo;
+  }
+};
+
+Scratch scratch_of(void* rows, int64_t n_rows, int64_t n_chains,
+                   void* spans, void* offs) {
+  int64_t* p = static_cast<int64_t*>(rows);
+  Scratch sc;
+  sc.spans = static_cast<uint4*>(spans);
+  sc.offs = static_cast<uint16_t*>(offs);
+  sc.slot0 = p;
+  sc.ro = sc.slot0 + n_rows + 1;
+  sc.oo = sc.ro + n_chains + 1;
+  sc.nspans = sc.oo + n_chains + 1;
+  sc.nloc = sc.nspans + n_rows;
+  sc.row_base = sc.nloc + n_rows;
+  sc.row_o0 = sc.row_base + n_rows;
+  return sc;
+}
+
+constexpr int kScanThreads = 1024;   // token_rows_kernel's one CTA
+
+// Inclusive scan over the CTA (kScanThreads threads) of one value >= 0 per
+// thread, by sum or by max; *total gets the whole CTA's result.
+template <bool kMax>
+__device__ int64_t cta_scan(int64_t v, int64_t* total) {
+  __shared__ int64_t part[kScanThreads / kLanes];
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  for (int d = 1; d < kLanes; d <<= 1) {
+    const int64_t u = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v = kMax ? max64(v, u) : v + u;
+  }
+  if (lane == kLanes - 1) part[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    int64_t x = part[lane];
+    for (int d = 1; d < kLanes; d <<= 1) {
+      const int64_t u = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x = kMax ? max64(x, u) : x + u;
+    }
+    part[lane] = x;
+  }
+  __syncthreads();
+  if (w > 0) v = kMax ? max64(v, part[w - 1]) : v + part[w - 1];
+  *total = part[kScanThreads / kLanes - 1];
+  __syncthreads();   // part is written again by the next call
+  return v;
+}
+
+// Stage A, before the parse: every row's span slots, 1 for a stored row,
+// len / 3 + 1 for a compressed one. interpret() ends when p reaches len,
+// and every sequence but the last moves p by at least 3 (the token, then
+// two offset bytes), so a row gives at most (len - 1) / 3 + 1 sequences,
+// at any o_limit. Then row_off and out_off as their running maxima.
+__global__ void __launch_bounds__(kScanThreads)
+token_rows_kernel(Chains ch, Scratch sc) {
+  int64_t base = 0, total;
+  for (int64_t b = 0; b < ch.n_rows; b += kScanThreads) {
+    const int64_t r = b + threadIdx.x;
+    int64_t n = 0;
+    if (r < ch.n_rows) n = ch.stored[r] ? 1 : ch.row(r).len / 3 + 1;
+    const int64_t inc = cta_scan<false>(n, &total);
+    if (r < ch.n_rows) sc.slot0[r] = base + inc - n;
+    base += total;
+  }
+  if (threadIdx.x == 0) sc.slot0[ch.n_rows] = base;
+  int64_t r_hi = 0, o_hi = 0;
+  for (int64_t b = 0; b <= ch.n_chains; b += kScanThreads) {
+    const int64_t c = b + threadIdx.x;
+    const bool in = c <= ch.n_chains;
+    int64_t r_tot, o_tot;
+    const int64_t r = cta_scan<true>(
+        in ? clamp64(ch.row_off[c], 0, ch.n_rows) : 0, &r_tot);
+    const int64_t o = cta_scan<true>(
+        in ? clamp64(ch.out_off[c], 0, ch.out_total) : 0, &o_tot);
+    if (in) {
+      sc.ro[c] = max64(r, r_hi);
+      sc.oo[c] = max64(o, o_hi);
+    }
+    r_hi = max64(r_hi, r_tot);
+    o_hi = max64(o_hi, o_tot);
+  }
+}
+
+__device__ __forceinline__ SpanSink sink_of(const Scratch& sc, int64_t r) {
+  const int64_t s = sc.slot0[r];
+  return SpanSink{sc.spans + s, sc.offs + s, sc.slot0[r + 1] - s, kWin, 0};
+}
+
+// Stage A: row r alone at cursor kWin with limit block_size.
+constexpr int kParseWarps = 4;
+
+__global__ void __launch_bounds__(kParseWarps * kLanes)
+token_parse_kernel(Chains ch, Scratch sc) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = blockIdx.x * static_cast<int64_t>(kParseWarps) +
+                    (threadIdx.x >> 5);
+  if (r >= ch.n_rows) return;
+  const Comp c = ch.row(r);
+  SpanSink sink = sink_of(sc, r);
+  int64_t n;
+  if (ch.stored[r]) {
+    n = min64(c.len, ch.block_size);
+    sink.sequence(c, kWin, 0, n, 0, 0, lane);
+  } else {
+    n = interpret(c, sink, kWin, kWin + ch.block_size, lane) - kWin;
+  }
+  if (lane == 0) {
+    sc.nspans[r] = min64(sink.k, sink.cap);
+    sc.nloc[r] = n;
+    sc.row_base[r] = -1;
+  }
+}
+
+// Stage A, last step: chain ci's cursors, its one clipped row parsed
+// again with the room left, and out_lens.
 __global__ void __launch_bounds__(kLanes)
-token_decode_linked_kernel(const uint8_t* __restrict__ comp,
-                           int64_t comp_total,
-                           const int64_t* __restrict__ comp_off,
-                           const uint8_t* __restrict__ stored,
-                           int64_t n_rows,
-                           const int64_t* __restrict__ row_off,
-                           const int64_t* __restrict__ out_off,
-                           int64_t out_total,
-                           const uint8_t* __restrict__ seed,
-                           int64_t block_size, uint8_t* out,
-                           int64_t* __restrict__ out_lens) {
+token_fix_kernel(Chains ch, Scratch sc, int64_t* __restrict__ out_lens) {
   const int64_t ci = blockIdx.x;
   const int lane = threadIdx.x;
-  const int64_t r0 = clamp64(row_off[ci], 0, n_rows);
-  const int64_t r1 = clamp64(row_off[ci + 1], r0, n_rows);
-  const int64_t o0 = clamp64(out_off[ci], 0, out_total);
-  const int64_t cap = clamp64(out_off[ci + 1], o0, out_total) - o0;
-  const Io io{seed, kWin, out + o0};
-  int64_t cursor = kWin;
+  const int64_t r0 = sc.ro[ci];
+  const int64_t r1 = sc.ro[ci + 1];
+  const int64_t o0 = sc.oo[ci];
+  const int64_t cap = sc.oo[ci + 1] - o0;
+  int64_t done = 0;   // bytes of the region decoded so far
   for (int64_t r = r0; r < r1; ++r) {
-    const int64_t w0 = clamp64(comp_off[r], 0, comp_total);
-    const Comp c{comp + w0, clamp64(comp_off[r + 1], w0, comp_total) - w0};
-    const int64_t limit = min64(cursor + block_size, kWin + cap);
-    int64_t n;
-    if (stored[r]) {
-      // A stored row's wire bytes are the plaintext.
-      n = min64(c.len, limit - cursor);
-      for (int64_t i = lane; i < n; i += kLanes)
-        io.write(cursor + i, static_cast<uint8_t>(c.at(i)));
-      __syncwarp();
-    } else {
-      n = interpret(c, io, cursor, limit, lane) - cursor;
+    const int64_t room = cap - done;
+    int64_t n = sc.nloc[r];
+    if (n > room) {
+      int64_t k = 0;
+      if (room > 0) {
+        const Comp c = ch.row(r);
+        SpanSink sink = sink_of(sc, r);
+        if (ch.stored[r]) {
+          n = room;
+          sink.sequence(c, kWin, 0, n, 0, 0, lane);
+        } else {
+          n = interpret(c, sink, kWin, kWin + room, lane) - kWin;
+        }
+        k = min64(sink.k, sink.cap);
+      } else {
+        n = 0;
+      }
+      if (lane == 0) sc.nspans[r] = k;
     }
-    if (lane == 0) out_lens[r] = n;
-    cursor += n;
+    if (lane == 0) {
+      sc.row_base[r] = o0 + done;
+      sc.row_o0[r] = o0;
+      out_lens[r] = n;
+    }
+    done += n;
   }
-  zero_fill(out + o0 + (cursor - kWin), cap - (cursor - kWin), lane);
+}
+
+// A live span, placed: bytes [0, lit) take comp[wi0 + i] (zeros at and
+// past wend), byte i >= lit takes output position from + (i - lit) %
+// period; g0 is the output position of byte 0, o0 its chain's first byte.
+struct Placed {
+  int64_t g0, tot, lit, wi0, wend, o0, from, period;
+};
+
+constexpr int64_t kLong = 1024;    // a warp writes spans up to this itself
+constexpr int64_t kChunk = 4096;   // bytes of a longer span per CTA turn
+
+// Stage B for bytes i0 + t, i0 + t + step, ... < i1 of span s.
+__device__ __forceinline__ void span_bytes(const uint8_t* comp,
+                                           const resolve::Seg& seg,
+                                           const Placed& s, int64_t i0,
+                                           int64_t i1, int t, int step) {
+  const uint32_t period = static_cast<uint32_t>(s.period);
+  for (int64_t i = i0 + t; i < i1; i += step) {
+    const int64_t g = s.g0 + i;
+    if (i < s.lit) {
+      const int64_t wi = s.wi0 + i;
+      seg.out[g] = wi < s.wend ? __ldg(comp + wi) : 0;
+    } else {
+      const uint32_t m = static_cast<uint32_t>(i - s.lit);
+      resolve::take(seg, g, s.o0, s.from + m % period);
+    }
+  }
+}
+
+// Stage B over one segment: a warp takes 32 span slots, then writes the
+// bytes of each live span that fall in the segment, 32 at a time; a span
+// with more than kLong of them goes to the long list (token_long_kernel)
+// while it has room.
+__global__ void __launch_bounds__(resolve::kThreads)
+token_spans_kernel(Chains ch, Scratch sc, int64_t n_slots,
+                   resolve::Seg seg, Placed* longs, int32_t* n_long,
+                   int64_t long_cap) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  for (int64_t base = (blockIdx.x * static_cast<int64_t>(blockDim.x >> 5) +
+                       (threadIdx.x >> 5)) * 32;
+       base < n_slots; base += warps * 32) {
+    const int64_t j = base + lane;
+    bool v = false;
+    Placed p{0, 0, 0, 0, 0, 0, 0, 1};
+    if (j < n_slots) {
+      const int64_t r = sc.row_of(j, ch.n_rows);
+      const int64_t rb = sc.row_base[r];
+      const int64_t k = j - sc.slot0[r];
+      if (rb >= 0 && k < sc.nspans[r]) {
+        const uint4 sp = sc.spans[j];
+        const Comp c = ch.row(r);
+        p.g0 = rb + sp.x;
+        p.lit = sp.z;
+        p.tot = p.lit + sp.w;
+        p.wi0 = (c.p - ch.comp) + sp.y;
+        p.wend = (c.p - ch.comp) + c.len;
+        p.o0 = sc.row_o0[r];
+        p.period = max(static_cast<uint32_t>(sc.offs[j]), 1u);
+        p.from = p.g0 + p.lit - p.period;   // parent of match byte 0
+        v = p.tot > 0 && p.g0 < seg.s1 && p.g0 + p.tot > seg.s0;
+      }
+    }
+    unsigned mask = __ballot_sync(kFull, v);
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      Placed q;
+      q.g0 = __shfl_sync(kFull, p.g0, src);
+      q.tot = __shfl_sync(kFull, p.tot, src);
+      q.lit = __shfl_sync(kFull, p.lit, src);
+      q.wi0 = __shfl_sync(kFull, p.wi0, src);
+      q.wend = __shfl_sync(kFull, p.wend, src);
+      q.o0 = __shfl_sync(kFull, p.o0, src);
+      q.from = __shfl_sync(kFull, p.from, src);
+      q.period = __shfl_sync(kFull, p.period, src);
+      // only the span's bytes inside the segment
+      const int64_t i0 = max64(seg.s0 - q.g0, 0);
+      const int64_t i1 = min64(q.tot, seg.s1 - q.g0);
+      if (i1 - i0 > kLong) {
+        int idx = 0;
+        if (lane == 0) idx = atomicAdd(n_long, 1);
+        idx = __shfl_sync(kFull, idx, 0);
+        if (idx < long_cap) {
+          if (lane == 0) longs[idx] = q;
+          continue;
+        }
+      }
+      span_bytes(ch.comp, seg, q, i0, i1, lane, kLanes);
+    }
+  }
+}
+
+// Stage B for the long list: chunk c of entry e goes to CTA (e + c) mod
+// the grid, so the whole card shares every long span.
+__global__ void __launch_bounds__(resolve::kThreads)
+token_long_kernel(Chains ch, resolve::Seg seg,
+                  const Placed* __restrict__ longs,
+                  const int32_t* __restrict__ n_long, int64_t long_cap) {
+  const int64_t n = min64(*n_long, long_cap);
+  const int64_t grid = gridDim.x;
+  for (int64_t e = 0; e < n; ++e) {
+    const Placed q = longs[e];
+    const int64_t i0 = max64(seg.s0 - q.g0, 0);
+    const int64_t i1 = min64(q.tot, seg.s1 - q.g0);
+    const int64_t chunks = (i1 - i0 + kChunk - 1) / kChunk;
+    for (int64_t c = (blockIdx.x - e % grid + grid) % grid; c < chunks;
+         c += grid) {
+      const int64_t a = i0 + c * kChunk;
+      span_bytes(ch.comp, seg, q, a, min64(a + kChunk, i1), threadIdx.x,
+                 blockDim.x);
+    }
+  }
+}
+
+Chains chains_of(const void* comp, int64_t comp_total, const void* comp_off,
+                 const void* stored, int64_t n_rows, const void* row_off,
+                 int64_t n_chains, const void* out_off, int64_t out_total,
+                 int64_t block_size) {
+  return Chains{static_cast<const uint8_t*>(comp), comp_total,
+                static_cast<const int64_t*>(comp_off),
+                static_cast<const uint8_t*>(stored), n_rows,
+                static_cast<const int64_t*>(row_off), n_chains,
+                static_cast<const int64_t*>(out_off), out_total, block_size};
 }
 
 }  // namespace
@@ -230,28 +604,77 @@ extern "C" int lz4t_token_decode(const void* comp, int64_t nb, int64_t row_w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Chains of dependent rows: comp u8[comp_total], row r's wire bytes
-// comp[comp_off[r]:comp_off[r+1]] (comp_off i64[n_rows + 1]); stored
-// u8[n_rows] flags; chain c owns rows row_off[c]..row_off[c+1] and output
-// out[out_off[c]:out_off[c+1]] (row_off, out_off i64[n_chains + 1]); seed
-// u8[65536] the window every chain starts from, or null for zeros;
-// out_lens i64[n_rows]. One CTA per chain on *stream*; does not
-// synchronise; returns cudaGetLastError().
+// Chains of dependent rows, first step: comp u8[comp_total], row r's wire
+// bytes comp[comp_off[r]:comp_off[r+1]] (comp_off i64[n_rows + 1]);
+// stored u8[n_rows] flags; chain c owns rows row_off[c]..row_off[c+1] and
+// output out[out_off[c]:out_off[c+1]] (row_off, out_off i64[n_chains +
+// 1], read as their running maxima). Fills rows i64[5 * n_rows + 2 *
+// n_chains + 3] with each row's span slots, whose total, rows[n_rows],
+// sizes lz4t_token_decode_linked's span scratch, and the chains' clamped
+// offsets. One CTA on *stream*; does not synchronise; returns
+// cudaGetLastError().
+extern "C" int lz4t_token_slots(const void* comp, int64_t comp_total,
+                                const void* comp_off, const void* stored,
+                                int64_t n_rows, const void* row_off,
+                                int64_t n_chains, const void* out_off,
+                                int64_t out_total, void* rows, void* stream) {
+  const Chains ch = chains_of(comp, comp_total, comp_off, stored, n_rows,
+                              row_off, n_chains, out_off, out_total, 0);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  token_rows_kernel<<<1, kScanThreads, 0, st>>>(
+      ch, scratch_of(rows, n_rows, n_chains, nullptr, nullptr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Chains of dependent rows, the decode, after lz4t_token_slots on the same
+// inputs and rows: seed u8[65536] the window every chain starts from, or
+// null for zeros; out u8[out_total]; out_lens i64[n_rows], zeroed;
+// block_size < 2**31. Every byte of out is written. Scratch: spans
+// u32[n_slots, 4] and offs u16[n_slots] (n_slots = rows[n_rows]), code
+// i32[seg_len], flags i32[ceil(out_total / seg_len) * rounds] zeroed,
+// longs 64 B x long_cap (the long list of one segment at a time), n_long
+// i32[ceil(out_total / seg_len)] zeroed. Queues the rest of stage A, then
+// stages B-D segment by segment, on *stream*; does not synchronise;
+// returns cudaGetLastError().
 extern "C" int lz4t_token_decode_linked(
     const void* comp, int64_t comp_total, const void* comp_off,
     const void* stored, int64_t n_rows, const void* row_off,
     int64_t n_chains, const void* out_off, int64_t out_total,
     const void* seed, int64_t block_size, void* out, void* out_lens,
-    void* stream) {
-  if (n_chains <= 0) return 0;
-  token_decode_linked_kernel<<<static_cast<unsigned>(n_chains), kLanes, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(comp), comp_total,
-      static_cast<const int64_t*>(comp_off),
-      static_cast<const uint8_t*>(stored), n_rows,
-      static_cast<const int64_t*>(row_off),
-      static_cast<const int64_t*>(out_off), out_total,
-      static_cast<const uint8_t*>(seed), block_size,
-      static_cast<uint8_t*>(out), static_cast<int64_t*>(out_lens));
+    void* rows, void* spans, void* offs, int64_t n_slots, void* code,
+    int64_t seg_len, void* flags, int rounds, void* longs, void* n_long,
+    int64_t long_cap, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Chains ch = chains_of(comp, comp_total, comp_off, stored, n_rows,
+                              row_off, n_chains, out_off, out_total,
+                              block_size);
+  const Scratch sc = scratch_of(rows, n_rows, n_chains, spans, offs);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  int32_t* cd = static_cast<int32_t*>(code);
+  const uint8_t* sd = static_cast<const uint8_t*>(seed);
+  if (n_rows > 0)
+    token_parse_kernel<<<static_cast<unsigned>(
+                             (n_rows + kParseWarps - 1) / kParseWarps),
+                         kParseWarps * kLanes, 0, st>>>(ch, sc);
+  if (n_chains > 0)
+    token_fix_kernel<<<static_cast<unsigned>(n_chains), kLanes, 0, st>>>(
+        ch, sc, static_cast<int64_t*>(out_lens));
+  int32_t* rflags = static_cast<int32_t*>(flags);
+  Placed* lg = static_cast<Placed*>(longs);
+  int32_t* nl = static_cast<int32_t*>(n_long);
+  for (int64_t s0 = 0; s0 < out_total;
+       s0 += seg_len, rflags += rounds, ++nl) {
+    const int64_t n = min64(seg_len, out_total - s0);
+    const resolve::Seg seg{o, cd, s0, s0 + n, sd};
+    resolve::init_kernel<<<resolve::blocks_for(n), resolve::kThreads, 0,
+                           st>>>(o, cd, s0, n);
+    if (n_slots > 0) {
+      token_spans_kernel<<<resolve::blocks_for(n_slots), resolve::kThreads,
+                           0, st>>>(ch, sc, n_slots, seg, lg, nl, long_cap);
+      token_long_kernel<<<resolve::kMaxBlocks, resolve::kThreads, 0, st>>>(
+          ch, seg, lg, nl, long_cap);
+    }
+    resolve::resolve_segment(o, cd, s0, n, rflags, rounds, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

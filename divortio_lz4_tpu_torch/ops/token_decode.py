@@ -15,6 +15,9 @@ interpreter, ``_interpret_block`` (``:116``); so do both entry points of
   rows copied through. A chain is a whole linked frame or one independent
   big block: no chunking and no window carried between calls.
   ``decode_linked_chunk`` keeps the JAX function's contract on top of it.
+  The kernels parse every row alone and resolve the matches in parallel
+  (``ops/resolve.py``; ``token_spans`` and ``decode_token_chains_resolved``
+  are the plain rendition of that design).
 
 On a CUDA tensor each wrapper launches its kernel (built by nvcc at first
 use) or raises; on a CPU tensor it runs the plain PyTorch version, which the
@@ -35,10 +38,13 @@ import torch
 
 from .._build import load_library
 from ..constants import WINDOW_SIZE
+from .resolve import (SEGMENT, Lits, Matches, ResolveRun, resolve_segments,
+                      rounds_for)
 
 W = WINDOW_SIZE
 HALF_SLACK = 128      # SLACK // 2: literal reads may run this far past a row
 CHECK_EVERY = 32      # plain parse steps between checks for a live row
+LONG_SPAN = 1024      # kLong of csrc/token_decode.cu
 
 
 class TokenChains(NamedTuple):
@@ -46,9 +52,13 @@ class TokenChains(NamedTuple):
     comp: torch.Tensor               # u8[comp_total] rows' wire bytes
     comp_off: torch.Tensor           # i64[n_rows + 1]
     stored: torch.Tensor             # u8[n_rows] stored-row flags
-    row_off: torch.Tensor            # i64[nc + 1] chain c's rows
+    # i64[nc + 1] chain c's rows, non-decreasing
+    row_off: torch.Tensor
     # i64[nc + 1] chain c's output region: 0 = out_off[0] <= ... <=
-    # out_off[nc] = out_total, so the regions tile the output
+    # out_off[nc] = out_total, so the regions tile the output. The CUDA
+    # kernels read row_off and out_off as their running maxima, so other
+    # offsets stay inside the buffers and no two chains share a row or a
+    # byte (token_spans renders that reading)
     out_off: torch.Tensor
     seed: Optional[torch.Tensor]     # u8[W] starting window, or None (zeros)
     block_size: int
@@ -65,8 +75,11 @@ def _kernels():
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.lz4t_token_decode.argtypes = [p, i64, i64, p, p, i64, p, p, p]
     lib.lz4t_token_decode.restype = ctypes.c_int
-    lib.lz4t_token_decode_linked.argtypes = [p, i64, p, p, i64, p, i64, p,
-                                             i64, p, i64, p, p, p]
+    chains = [p, i64, p, p, i64, p, i64, p, i64]
+    lib.lz4t_token_slots.argtypes = chains + [p, p]
+    lib.lz4t_token_slots.restype = ctypes.c_int
+    lib.lz4t_token_decode_linked.argtypes = chains + [
+        p, i64, p, p, p, p, p, i64, p, i64, p, ctypes.c_int, p, p, i64, p]
     lib.lz4t_token_decode_linked.restype = ctypes.c_int
     return lib
 
@@ -162,41 +175,71 @@ def _check_chains(batch: TokenChains):
 def decode_token_chains(batch: TokenChains):
     """Decode every chain of *batch*. Returns (out u8[out_total], out_lens
     i64[n_rows]): chain c's decoded bytes start at out[out_off[c]] and run
-    for the sum of its rows' out_lens; the rest of its region is zeros.
-    The regions must tile out (see TokenChains.out_off): on CUDA a byte
-    outside every region is left unwritten. On CUDA the kernel is queued
-    on the current stream and nothing synchronises; ``launches`` counts
-    those launches."""
+    for the sum of its rows' out_lens; the rest of its region, and every
+    byte outside the regions, is zeros. On CUDA the kernels are queued on
+    the current stream; the call synchronises once, to read the span slot
+    count that sizes its scratch (1 per stored row, 1 per 3 wire bytes of
+    a compressed row). ``launches`` counts those calls, and ``last`` (a
+    ResolveRun) keeps what the call left on the device: its ``stats()``
+    gives the rounds and the scratch bytes. The kernels take block_size <
+    2**31."""
     _check_chains(batch)
     comp = batch.comp
     if comp.device.type == "cpu":
         return decode_token_chains_plain(batch)
     if comp.device.type != "cuda":
         raise ValueError(f"no token decode for device {comp.device}")
+    if batch.block_size >= 1 << 31:
+        raise ValueError("block_size must be < 2**31 on CUDA")
+    dev = comp.device
     n_rows = batch.stored.shape[0]
     nc = batch.row_off.shape[0] - 1
-    # the kernel writes every byte of each region: decoded, then zeros
-    out = torch.empty(batch.out_total, dtype=torch.uint8, device=comp.device)
-    out_lens = torch.zeros(n_rows, dtype=torch.int64, device=comp.device)
-    if nc == 0:
-        return out, out_lens
-    fn = _kernels().lz4t_token_decode_linked
-    with torch.cuda.device(comp.device):
-        stream = torch.cuda.current_stream(comp.device).cuda_stream
-        rc = fn(comp.data_ptr(), comp.shape[0], batch.comp_off.data_ptr(),
-                batch.stored.data_ptr(), n_rows, batch.row_off.data_ptr(),
-                nc, batch.out_off.data_ptr(), batch.out_total,
-                None if batch.seed is None else batch.seed.data_ptr(),
-                batch.block_size, out.data_ptr(), out_lens.data_ptr(),
-                stream)
+    out = torch.empty(batch.out_total, dtype=torch.uint8, device=dev)
+    out_lens = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    seg = max(1, min(SEGMENT, batch.out_total))
+    nseg = -(-batch.out_total // seg)
+    rounds = rounds_for(seg)
+    rows = torch.empty(5 * n_rows + 2 * nc + 3, dtype=torch.int64,
+                       device=dev)
+    lib = _kernels()
+    head = (comp.data_ptr(), comp.shape[0], batch.comp_off.data_ptr(),
+            batch.stored.data_ptr(), n_rows, batch.row_off.data_ptr(), nc,
+            batch.out_off.data_ptr(), batch.out_total)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lz4t_token_slots(*head, rows.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"token_decode_linked kernel launch failed: "
+                               f"cudaError {rc}")
+        n_slots = int(rows[n_rows])        # the call's one sync
+        spans = torch.empty((n_slots, 4), dtype=torch.int32, device=dev)
+        offs = torch.empty(n_slots, dtype=torch.int16, device=dev)
+        code = torch.empty(seg, dtype=torch.int32, device=dev)
+        flags = torch.zeros(nseg * rounds, dtype=torch.int32, device=dev)
+        # spans with over LONG_SPAN bytes in a segment are disjoint: at most
+        # seg // LONG_SPAN + 2 of them (a full list only slows a warp down)
+        long_cap = seg // LONG_SPAN + 2
+        longs = torch.empty((long_cap, 8), dtype=torch.int64, device=dev)
+        n_long = torch.zeros(nseg, dtype=torch.int32, device=dev)
+        rc = lib.lz4t_token_decode_linked(
+            *head, None if batch.seed is None else batch.seed.data_ptr(),
+            batch.block_size, out.data_ptr(), out_lens.data_ptr(),
+            rows.data_ptr(), spans.data_ptr(), offs.data_ptr(), n_slots,
+            code.data_ptr(), seg, flags.data_ptr(), rounds,
+            longs.data_ptr(), n_long.data_ptr(), long_cap, stream)
     if rc != 0:
         raise RuntimeError(f"token_decode_linked kernel launch failed: "
                            f"cudaError {rc}")
     decode_token_chains.launches += 1
+    decode_token_chains.last = ResolveRun(
+        flags, nc, False, nseg, rounds,
+        sum(x.numel() * x.element_size()
+            for x in (spans, offs, rows, code, flags, longs, n_long)))
     return out, out_lens
 
 
 decode_token_chains.launches = 0
+decode_token_chains.last = None
 
 
 def decode_linked_chunk(comp: torch.Tensor, lens: torch.Tensor,
@@ -356,6 +399,133 @@ def decode_blocks_pallas_plain(comp: torch.Tensor, lens: torch.Tensor,
     out = io[:-1].view(nb, row_w)[:, base:]
     keep = torch.arange(block_size, device=dev)[None, :] < out_lens[:, None]
     return torch.where(keep, out, 0).contiguous(), out_lens
+
+
+def _flat_spans(lits, matches):
+    """_parse's per-step span lists as flat tensors with each span's row
+    (rows numbered by their place in the parse)."""
+    if not lits:
+        return None
+    rows = lits[0][0].shape[0]
+    row = torch.arange(rows, device=lits[0][0].device).repeat(len(lits))
+    lo, lsrc, ln, lend = (torch.stack(x).reshape(-1) for x in zip(*lits))
+    mo, moff, mn = (torch.stack(x).reshape(-1) for x in zip(*matches))
+    return row, (lo, lsrc, ln, lend), (mo, moff, mn)
+
+
+def token_spans(batch: TokenChains):
+    """Stage A of the token path (``csrc/token_decode.cu``,
+    ``token_parse_kernel`` and ``token_fix_kernel``). Every row is parsed
+    alone at a row-local cursor W with limit W + block_size (a stored row
+    is one literal span of min(len, block_size)); a scan of the lengths
+    inside each chain then gives each row's cursor. The parse equals the
+    serial one while cursor + n <= W + cap: the cap clamp can only bind
+    in the first row that would pass the chain's region, which is parsed
+    again with the room left; every row after it decodes to 0 bytes. The
+    ``offset > o`` clamp never fires, the cursor being >= W > offset, in
+    either parse. row_off and out_off are read as their running maxima
+    (``token_rows_kernel``), so the chains' rows and regions never
+    overlap. Returns (out_lens, Lits, Matches)."""
+    _check_chains(batch)
+    comp, comp_off, stored, row_off, out_off, _, bs, out_total = batch
+    dev = comp.device
+    T = comp.shape[0]
+    n_rows = stored.shape[0]
+    w0 = comp_off[:-1].clamp(0, T)
+    wl = torch.maximum(comp_off[1:].clamp(0, T), w0) - w0
+    ro = torch.cummax(row_off.clamp(0, n_rows), 0).values
+    oo = torch.cummax(out_off.clamp(0, out_total), 0).values
+    r0, r1 = ro[:-1], ro[1:]
+    o0 = oo[:-1]
+    cap = oo[1:] - o0
+    st = _Stream(comp)
+    is_st = stored != 0
+    full = torch.full((n_rows,), W, dtype=torch.int64, device=dev)
+    lits, matches = [], []
+    o = _parse(st, w0, torch.where(is_st, 0, wl), full, full + bs, lits,
+               matches) if n_rows else full
+    n_loc = torch.where(is_st, wl.clamp(max=bs), o - W)
+
+    # the cursor scan inside each chain, and the row the cap clips
+    nc = len(r0)
+    chain = torch.full((n_rows,), -1, dtype=torch.int64, device=dev)
+    chain[torch.repeat_interleave(r0, r1 - r0)
+          + _row_in_chain(r1 - r0)] = \
+        torch.repeat_interleave(torch.arange(nc, device=dev), r1 - r0)
+    inc = chain >= 0
+    c = chain.clamp(min=0)
+    before = _excl_in_chain(torch.where(inc, n_loc, 0), r0, r1, c)
+    room = cap[c] - before
+    viol = inc & (n_loc > room)
+    dead = inc & (_excl_in_chain(viol.long(), r0, r1, c) > 0)
+    clip = viol & ~dead
+    n = torch.where(inc & ~dead, n_loc, 0)
+    again = clip & (room > 0)
+    rows = again.nonzero().flatten()
+    lits2, matches2 = [], []
+    if len(rows):
+        o2 = _parse(st, w0[rows], torch.where(is_st[rows], 0, wl[rows]),
+                    full[rows], full[rows] + room[rows], lits2, matches2)
+        n[rows] = torch.where(is_st[rows], room[rows], o2 - W)
+    n[clip & (room <= 0)] = 0
+    out_lens = n
+    base = o0[c] + before     # global position of the local cursor W
+    keep = inc & ~dead & ~clip
+
+    parts_l, parts_m = [], []
+    for idx, ls, ms in ((torch.arange(n_rows, device=dev), lits, matches),
+                        (rows, lits2, matches2)):
+        flat = _flat_spans(ls, ms)
+        if flat is None:
+            continue
+        k, (lo, lsrc, ln, lend), (mo, moff, mn) = flat
+        r = idx[k]
+        take = keep[r] if ls is lits else torch.ones_like(r, dtype=torch.bool)
+        parts_l.append((base[r] + lo - W, lsrc, lend, ln, take))
+        parts_m.append((base[r] + mo - W, o0[c[r]], base[r] + mo - W - moff,
+                        moff.clamp(min=1), mn, take))
+    # stored rows: one literal span of their wire bytes
+    srow = (is_st & inc & ~dead).nonzero().flatten()
+    parts_l.append((base[srow], w0[srow], w0[srow] + wl[srow], n[srow],
+                    torch.ones_like(srow, dtype=torch.bool)))
+    lit = [torch.cat(x) for x in zip(*parts_l)]
+    lit = Lits(*(x[lit[4]] for x in lit[:4]))
+    if parts_m:
+        mat = [torch.cat(x) for x in zip(*parts_m)]
+        mat = Matches(*(x[mat[5]] for x in mat[:5]))
+    else:
+        z = torch.zeros(0, dtype=torch.int64, device=dev)
+        mat = Matches(z, z, z, z + 1, z)
+    return out_lens, lit, mat
+
+
+def _row_in_chain(counts):
+    """0, 1, ... inside each run of *counts* rows."""
+    first = torch.cumsum(counts, 0) - counts
+    owner = torch.repeat_interleave(torch.arange(len(counts),
+                                                 device=counts.device),
+                                    counts)
+    return torch.arange(len(owner), device=counts.device) - first[owner]
+
+
+def _excl_in_chain(x, r0, r1, chain):
+    """Exclusive prefix sums of per-row *x* inside each chain's rows (the
+    chains' rows lie in order: token_spans reads row_off so)."""
+    cs = torch.cumsum(x, 0) - x
+    start = torch.where(r1 > r0, cs[r0.clamp(max=max(len(x) - 1, 0))], 0) \
+        if len(x) else r0
+    return cs - start[chain]
+
+
+def decode_token_chains_resolved(batch: TokenChains,
+                                 segment: Optional[int] = None):
+    """decode_token_chains as the CUDA kernels compute it, in plain
+    PyTorch: token_spans, then stages B-D of ``ops/resolve.py``. Returns
+    (out, out_lens, stats with the rounds per segment)."""
+    out_lens, lits, matches = token_spans(batch)
+    out, rounds = resolve_segments(batch.out_total, batch.comp, batch.seed,
+                                   lits, matches, segment or SEGMENT)
+    return out, out_lens, dict(rounds=rounds)
 
 
 def decode_token_chains_plain(batch: TokenChains):

@@ -19,10 +19,17 @@ no record writes are zeros.
 
 The TPU planner cut each chain into <= 256 KB waves with a carried window,
 interleave ways and per-wave record budgets to fit VMEM and SMEM, and gave
-up (``None``) on giant-RLE pieces and dense waves. The GPU kernel keeps a
+up (``None``) on giant-RLE pieces and dense waves. The GPU kernels keep a
 chain's output and records in device memory, so none of that is ported:
 every block parses whole (``parse_records_wire``) and every frame the host
 scanner accepts decodes here.
+
+The kernels do not walk a chain in order: they resolve its matches in
+parallel (``ops/resolve.py``; ``record_spans`` and
+``decode_chains_resolved`` are the plain rendition of that design). A chain
+whose records break the conformance check, which only random words do,
+decodes with the serial record walk instead; both give
+``decode_chains_plain``'s bytes.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ import torch
 from .._build import load_library
 from ..host import scan_pieces_native
 from ..utils import host_pool
+from .resolve import (NO_PERIOD, SEGMENT, Lits, Matches, ResolveRun,
+                      resolve_segments, rounds_for)
 from .split_decode import parse_records_wire, stored_wire_records
 
 W = 65536       # seed window ahead of a chain's output
@@ -61,18 +70,21 @@ class ChainBatch(NamedTuple):
 # Host planning
 # ---------------------------------------------------------------------------
 
-def _block_out_len(buf, off, size, stored, block_max) -> int:
+def block_pieces(buf, off, size, stored, block_max):
+    """(decoded size, wire lengths of the block's pieces): a compressed
+    block cut at sequence boundaries into pieces of >= 64 KB output, a
+    stored block one piece. The native piece scan (lz4t_scan_pieces) raises
+    "LZ4: Malformed Input" and "LZ4: Invalid Offset 0" on broken streams;
+    a block that decodes past *block_max* raises "LZ4: Output Buffer Too
+    Small"."""
     if stored:
-        return size
-    # The native piece scan (lz4t_scan_pieces) raises "LZ4: Malformed
-    # Input" and "LZ4: Invalid Offset 0" on broken streams; its pieces'
-    # output lengths sum to the block's decoded size.
-    _, _, ol = scan_pieces_native(
+        return size, np.array([size], np.int64)
+    _, wl, ol = scan_pieces_native(
         np.ascontiguousarray(buf[off: off + size], np.uint8), W)
     total = int(ol.sum())
     if total > block_max:
         raise ValueError("LZ4: Output Buffer Too Small")
-    return total
+    return total, wl
 
 
 def _block_records(buf, off, size, stored, out_len, block_max, hist):
@@ -98,7 +110,7 @@ def plan_blocks(buf: np.ndarray, blocks, header, window):
     bm = header["block_max"]
     pool = host_pool()
     out_lens = np.array(list(pool.map(
-        lambda b: _block_out_len(buf, *b, bm), blocks)), np.int64)
+        lambda b: block_pieces(buf, *b, bm)[0], blocks)), np.int64)
     dict_len = len(window) if window is not None else 0
     before = np.zeros(len(blocks), np.int64)
     if not header["independent"]:
@@ -201,7 +213,8 @@ def decompress_frame_chains(buf: np.ndarray, blocks, header, window,
 def _kernel():
     fn = load_library("chain_decode").lz4t_chain_decode
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, i64, p, p, i64, p, p, i64, p, p, i64, p]
+    fn.argtypes = [p, i64, p, p, i64, p, p, i64, p, p, i64, p, i64, p,
+                   ctypes.c_int, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -237,34 +250,47 @@ def decode_chains(batch: ChainBatch) -> torch.Tensor:
     """Decode every chain of *batch*. Returns u8[out_total] on the
     batch's device: chain c's bytes at out[out_off[c]:out_off[c+1]] (the
     chains' regions tile the output, as stage_chains builds them). On CUDA
-    the kernel is queued on the current stream and nothing synchronises;
-    ``launches`` counts those launches."""
+    the kernels are queued on the current stream and nothing synchronises;
+    ``launches`` counts those calls, and ``last`` (a ResolveRun) keeps
+    what the call left on the device: its ``stats()`` gives the rounds,
+    the chains decoded serially and the scratch bytes."""
     _check(batch)
     wire = batch.wire
     if wire.device.type == "cpu":
         return decode_chains_plain(batch)
     if wire.device.type != "cuda":
         raise ValueError(f"no chain decode for device {wire.device}")
-    out = torch.empty(batch.out_total, dtype=torch.uint8, device=wire.device)
+    dev = wire.device
+    out = torch.empty(batch.out_total, dtype=torch.uint8, device=dev)
     nc = batch.wire_off.shape[0] - 1
     if nc == 0:
         return out
+    seg = max(1, min(SEGMENT, batch.out_total))
+    nseg = -(-batch.out_total // seg)
+    rounds = rounds_for(seg)
+    code = torch.empty(seg, dtype=torch.int32, device=dev)
+    flags = torch.zeros(1 + nc + nseg * rounds, dtype=torch.int32,
+                        device=dev)
     fn = _kernel()
-    with torch.cuda.device(wire.device):
-        stream = torch.cuda.current_stream(wire.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(wire.data_ptr(), wire.shape[0], batch.wire_off.data_ptr(),
                 batch.rec_words.data_ptr(), batch.rec_words.shape[0],
                 batch.rec_off.data_ptr(), batch.out_off.data_ptr(), nc,
                 None if batch.seed is None else batch.seed.data_ptr(),
-                out.data_ptr(), batch.out_total, stream)
+                out.data_ptr(), batch.out_total, code.data_ptr(), seg,
+                flags.data_ptr(), rounds, stream)
     if rc != 0:
         raise RuntimeError(f"chain_decode kernel launch failed: "
                            f"cudaError {rc}")
     decode_chains.launches += 1
+    decode_chains.last = ResolveRun(flags, nc, True, nseg, rounds,
+                                    4 * (code.numel() + flags.numel()))
     return out
 
 
 decode_chains.launches = 0
+decode_chains.last = None
 
 
 # ---------------------------------------------------------------------------
@@ -336,21 +362,99 @@ def decode_records_plain(wire, wire_base, wire_len, words, rec_base, counts,
     return buf, io_base
 
 
-def decode_chains_plain(batch: ChainBatch) -> torch.Tensor:
-    """decode_chains in plain PyTorch (any device): the same offsets
-    clamps and record body, chains batched per record step."""
-    _check(batch)
-    wire, wire_off, words, rec_off, out_off, seed, out_total = batch
-    dev = wire.device
+def _chain_bounds(batch: ChainBatch):
+    """Each chain's (w0, wlen, r0, r1, o0, cap), its offsets clamped into
+    the buffers as the kernels clamp them."""
+    wire, wire_off, words, rec_off, out_off, _, out_total = batch
     n_rec = words.shape[0]
     w0 = wire_off[:-1].clamp(0, wire.shape[0])
     wlen = torch.maximum(wire_off[1:].clamp(0, wire.shape[0]), w0) - w0
     r0 = rec_off[:-1].clamp(0, n_rec)
-    counts = torch.maximum(rec_off[1:].clamp(0, n_rec), r0) - r0
+    r1 = torch.maximum(rec_off[1:].clamp(0, n_rec), r0)
     o0 = out_off[:-1].clamp(0, out_total)
-    caps = torch.maximum(out_off[1:].clamp(0, out_total), o0) - o0
+    cap = torch.maximum(out_off[1:].clamp(0, out_total), o0) - o0
+    return w0, wlen, r0, r1, o0, cap
+
+
+def record_spans(batch: ChainBatch):
+    """Stage A of the record path (``csrc/chain_decode.cu``,
+    ``chain_conform_kernel`` and ``chain_spans_kernel``): every record
+    with ``do_record``'s clamps, one literal and one match span each, and
+    a per-chain conformance flag. A chain conforms when every record
+    starts at or after the end of the one before it and its match source
+    ends at or before its own start: then every byte is written once and
+    every match reads final bytes, so resolving in parallel gives the
+    serial order's bytes. Returns (conform bool[nc], Lits, Matches) of the
+    conforming chains, or None when the chains overlap."""
+    _check(batch)
+    w0, wlen, r0, r1, o0, cap = _chain_bounds(batch)
+    # chains whose records or outputs overlap all take the serial route
+    if not (bool((r0[1:] >= r1[:-1]).all())
+            and bool((o0[1:] >= (o0 + cap)[:-1]).all())):
+        return None
+    dev = batch.wire.device
+    nc = len(r0)
+    counts = r1 - r0
+    chain = torch.repeat_interleave(torch.arange(nc, device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts
+    k = torch.arange(len(chain), device=dev)
+    idx = k - first[chain] + r0[chain]
+    w = batch.rec_words[idx].to(torch.int64) & 0xFFFFFFFF
+    src, w1, dst = w[:, 0], w[:, 1], w[:, 2]
+    c_cap = cap[chain]
+    off = (w1 & 0xFFFF).clamp(min=1)
+    ll = (w1 >> 16) & 0xFF
+    ml = (w1 >> 24) & 0xFF
+    dst = torch.minimum(dst, c_cap) + W
+    tot = torch.minimum(ll + ml, (W + c_cap - dst).clamp(max=SPAN))
+    ll = torch.minimum(ll, tot)
+    msrc = (dst + ll - off).clamp(min=0)
+    s = torch.minimum(src, wlen[chain] - SPAN).clamp(min=0)
+    prev_end = torch.cat([dst.new_zeros(1), (dst + tot)[:-1]])
+    ok = ((k == first[chain]) | (dst >= prev_end)) \
+        & ((tot == ll) | (msrc + tot - ll <= dst))
+    conform = torch.ones(nc, dtype=torch.bool, device=dev)
+    conform[chain[~ok]] = False
+    keep = conform[chain]
+    chain, dst, ll, tot, msrc, s = (x[keep] for x in
+                                    (chain, dst, ll, tot, msrc, s))
+    g = o0[chain] + dst - W
+    lits = Lits(g, w0[chain] + s, w0[chain] + wlen[chain], ll)
+    matches = Matches(g + ll, o0[chain], o0[chain] + msrc - W,
+                      torch.full_like(g, NO_PERIOD), tot - ll)
+    return conform, lits, matches
+
+
+def decode_chains_resolved(batch: ChainBatch, segment: Optional[int] = None):
+    """decode_chains as the CUDA kernels compute it, in plain PyTorch:
+    stages A-D of ``ops/resolve.py`` for the conforming chains, the serial
+    record walk (decode_chains_plain) for the rest. Returns (out, stats
+    with the rounds per segment and the serially decoded chains)."""
+    spans = record_spans(batch)
+    nc = batch.wire_off.shape[0] - 1
+    if spans is None:
+        return decode_chains_plain(batch), dict(rounds=[], serial_chains=nc)
+    conform, lits, matches = spans
+    out, rounds = resolve_segments(batch.out_total, batch.wire, batch.seed,
+                                   lits, matches, segment or SEGMENT)
+    if not bool(conform.all()):
+        plain = decode_chains_plain(batch)
+        o0, cap = _chain_bounds(batch)[4:]
+        for c in (~conform).nonzero().flatten().tolist():
+            a, b = int(o0[c]), int(o0[c] + cap[c])
+            out[a:b] = plain[a:b]
+    return out, dict(rounds=rounds, serial_chains=int((~conform).sum()))
+
+
+def decode_chains_plain(batch: ChainBatch) -> torch.Tensor:
+    """decode_chains in plain PyTorch (any device): the same offsets
+    clamps and record body, chains batched per record step."""
+    _check(batch)
+    wire, _, words, _, _, seed, out_total = batch
+    dev = wire.device
+    w0, wlen, r0, r1, o0, caps = _chain_bounds(batch)
     buf, io_base = decode_records_plain(
-        wire, w0, wlen, words.to(torch.int64) & 0xFFFFFFFF, r0, counts,
+        wire, w0, wlen, words.to(torch.int64) & 0xFFFFFFFF, r0, r1 - r0,
         caps, seed)
     out = torch.zeros(out_total, dtype=torch.uint8, device=dev)
     owner = torch.repeat_interleave(torch.arange(len(caps), device=dev),

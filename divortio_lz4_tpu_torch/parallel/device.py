@@ -86,7 +86,7 @@ from ..ops.split_decode import from_reference_records, parse_wire_raw
 from ..ops.split_encode import chain_select_serialize, encode_blocks_chain
 from ..ops.token_decode import (TokenChains, decode_blocks_pallas,
                                 decode_token_chains)
-from ..ops.wave_decode import _block_out_len, decode_chains, stage_chains
+from ..ops.wave_decode import block_pieces, decode_chains, stage_chains
 from ..ops.wire_decode import decode_blocks_wire, parse_wire_batch
 from ..utils import ensure_buffer, host_pool, read_u32le, write_u32le
 from ..xxh import xxhash32
@@ -641,24 +641,36 @@ def stage_token_chains(buf, blocks, header, window, device, scan: bool):
     ``bigblock._plan_pieces`` does, in block order: a broken stream raises
     the scanner's "LZ4: ..." error and a block that decodes past the
     frame's block size "LZ4: Output Buffer Too Small"; each chain's output
-    is then sized exactly. Without (linked frames of blocks up to 256 KB,
-    the JAX ``_decode_linked_pallas``), nothing is checked and the chain
-    has room for every block at full size. The TPU's 64 KB pieces exist
-    for VMEM and are not ported, so giant-RLE blocks, for which JAX falls
+    is then sized exactly, and each compressed block becomes one row per
+    scanned piece (cut at sequence boundaries, >= 64 KB of output each),
+    so the kernel parses a 4 MB block as ~64 rows at once. On a scanned
+    block no clamp binds, so its pieces decode to the block's bytes.
+    Without (linked frames of blocks up to 256 KB, the JAX
+    ``_decode_linked_pallas``), nothing is checked, a block is one row and
+    the chain has room for every block at full size. The TPU's per-piece
+    VMEM budgets are not ported, so giant-RLE blocks, for which JAX falls
     back to its XLA decoder, decode here too."""
     bs = header["block_max"]
     nb = len(blocks)
-    sizes = np.array([size for _, size, _ in blocks], np.int64)
     if scan:
-        caps = np.array(list(host_pool().map(
-            lambda b: _block_out_len(buf, *b, bs), blocks)), np.int64)
+        scanned = list(host_pool().map(lambda b: block_pieces(buf, *b, bs),
+                                       blocks))
+        caps = np.array([total for total, _ in scanned], np.int64)
+        pieces = [wl for _, wl in scanned]
     else:
         caps = np.full(nb, bs, np.int64)
+        pieces = [np.array([size], np.int64) for _, size, _ in blocks]
     comp = np.concatenate([buf[off: off + size] for off, size, _ in blocks])
-    comp_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    stored = np.array([st for _, _, st in blocks], np.uint8)
-    starts = np.arange(nb + 1) if header["independent"] else np.array([0, nb])
-    out_off = np.concatenate([[0], np.cumsum(caps)])[starts].astype(np.int64)
+    comp_off = np.concatenate([[0], np.cumsum(np.concatenate(pieces))]) \
+        .astype(np.int64)
+    per_block = np.array([len(p) for p in pieces], np.int64)
+    stored = np.repeat(np.array([st for _, _, st in blocks], np.uint8),
+                       per_block)
+    chain_blocks = np.arange(nb + 1) if header["independent"] \
+        else np.array([0, nb])
+    starts = np.concatenate([[0], np.cumsum(per_block)])[chain_blocks]
+    out_off = np.concatenate([[0], np.cumsum(caps)])[chain_blocks] \
+        .astype(np.int64)
     batch = TokenChains(_put(comp, device), _put(comp_off, device),
                         _put(stored, device),
                         _put(starts.astype(np.int64), device),

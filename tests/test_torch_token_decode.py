@@ -350,3 +350,47 @@ def test_cuda_chains_kernel_matches_plain_on_linked_4m_blocks(cuda):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
     assert want[0][: n].numpy().tobytes() == data.tobytes()
+
+
+@pytest.mark.parametrize("name", ["linked_64k_dict", "linked_4m_scan"])
+def test_resolved_linked_frames_match_jax(name):
+    """The parallel design's plain rendition (rows parsed alone, cursor
+    scan, pointer doubling) on a frame's staged chains gives the JAX
+    engine="pallas" decode."""
+    frame, dic, data = _frame(name)
+    header, blocks, _ = pt_dev.parse_block_index(frame)
+    window = None if dic is None else np.asarray(dic)[-W:]
+    batch, starts, out_off = pt_dev.stage_token_chains(
+        frame, blocks, header, window, "cpu", "4m" in name)
+    out, out_lens, _ = pt_td.decode_token_chains_resolved(batch)
+    want = np.asarray(device_decompress_frame(frame, dictionary=dic,
+                                              engine="pallas"))
+    np.testing.assert_array_equal(out[: int(out_lens.sum())].numpy(), want)
+    np.testing.assert_array_equal(want, data)
+
+
+def test_scanned_blocks_stage_as_piece_rows():
+    """With the scan, each compressed block is staged as its scanned
+    pieces (rows cut at sequence boundaries, >= 64 KB of output each) and
+    a stored block as one row; the chain decodes to the frame's bytes, as
+    with one row per block."""
+    data = np.concatenate([_records(256 * KB),
+                           np.random.default_rng(4).integers(
+                               0, 256, 256 * KB, dtype=np.uint8),
+                           _records(200_000)])
+    frame = np.asarray(lz4.compress(data, config=FrameConfig(
+        block_size=256 * KB)))
+    header, blocks, _ = pt_dev.parse_block_index(frame)
+    assert any(st for *_, st in blocks)
+    outs = {}
+    for scan in (True, False):
+        batch, starts, out_off = pt_dev.stage_token_chains(
+            frame, blocks, header, None, "cpu", scan)
+        out, out_lens = pt_td.decode_token_chains_plain(batch)
+        outs[scan] = out[: int(out_lens.sum())].numpy()
+        assert len(starts) == 2 and int(out_off[-1]) == batch.out_total
+        n_rows = batch.stored.shape[0]
+        assert (n_rows > len(blocks)) == scan
+    assert int(batch.stored.sum()) == sum(st for *_, st in blocks)
+    np.testing.assert_array_equal(outs[True], data)
+    np.testing.assert_array_equal(outs[False], data)

@@ -368,3 +368,25 @@ def test_cuda_wire_kernel_matches_plain(kind, rng, compressible, cuda):
     torch.cuda.synchronize()
     assert pt_wr.decode_blocks_wire.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["linked_64k", "linked_256k_stored",
+                                  "independent_1m"])
+def test_record_spans_tile_the_output(case):
+    """Stage A of the parallel design on parser-built chains: every chain
+    conforms and its literal and match spans cover each output byte
+    exactly once, in order."""
+    frame, data, d = _chain_frame(case)
+    header, blocks, _ = parse_block_index(frame)
+    batch = pt_wd.stage_chains(frame, blocks, header,
+                               None if d is None else d[-65536:], "cpu")
+    conform, lits, matches = pt_wd.record_spans(batch)
+    assert conform.all()
+    cover = torch.zeros(batch.out_total, dtype=torch.int64)
+    for at, n in ((lits.at, lits.n), (matches.at, matches.n)):
+        owner = torch.repeat_interleave(torch.arange(len(n)), n)
+        j = torch.arange(len(owner)) - (torch.cumsum(n, 0) - n)[owner]
+        cover.index_add_(0, at[owner] + j, torch.ones_like(j))
+    assert bool((cover == 1).all())
+    # every match reads bytes before its record
+    assert bool((matches.src + matches.n <= matches.at).all())
