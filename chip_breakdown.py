@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Layer breakdown of one frame on one GPU.
 
-    python3 chip_breakdown.py [--mib 64] [--seed N] [--engine split|pallas]
+    python3 chip_breakdown.py [--mib 64] [--seed N]
+                              [--engine split|pallas|hybrid]
 
 Encodes bench.build_corpus(MiB, seed) as one FrameConfig() frame (4 MB
 linked blocks) with a content checksum, then decodes it, and times each
@@ -32,7 +33,14 @@ independent blocks with a content checksum, whose layers are
 - decode: block index, padded comp rows + H2D, token_decode kernel (CUDA
   events), D2H of the rows and lengths, joining rows, content xxh32.
 
-Then one compress_frame and one decompress_frame run under torch.profiler.
+With ``--engine hybrid`` the frame is the engine="hybrid" one (64 KB
+independent blocks, content checksum; encode only, since hybrid decode is
+not ported): blocks to rows, H2D of the rows, chain builder (CUDA events),
+hybrid_encode walk (CUDA events), D2H of the rows and lengths, frame
+assembly with the content xxh32.
+
+Then one compress_frame and one decompress_frame (hybrid: compress_frame
+only) run under torch.profiler.
 The device busy share of a call is the union of its device activity
 intervals (kernels, memcpy, memset; user annotations left out) over the
 call's host wall time, so an interval the profiler reports under two
@@ -269,11 +277,44 @@ def _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel):
         raise AssertionError("the layers' output differs from the corpus")
 
 
+def _hybrid_layers(torch, pt, raw, frame, cfg, dev, layer, kernel):
+    """The engine="hybrid" 64 KB frame's encode layers."""
+    from divortio_lz4_tpu_torch.ops.hybrid_encode import (_chunked_chains,
+                                                          hybrid_walk)
+    from divortio_lz4_tpu_torch.parallel.device import (
+        _assemble_frame_host, _fetch_all, _history_rows)
+
+    bs = cfg.resolved_block_size
+    layer("encode", "compress_frame",
+          lambda: pt.compress_frame(raw, cfg, engine="hybrid", device=dev))
+    work, lens, nblocks, hl, hs = layer(
+        "encode", "blocks to rows (host)",
+        lambda: _history_rows(raw, bs, None, False))
+    w = layer("encode", "H2D work rows",
+              lambda: torch.from_numpy(work).to(dev))
+    ln = torch.from_numpy(lens.astype(np.int64)).to(dev)
+    chains = kernel("encode", "chain builder",
+                    lambda: _chunked_chains(w, ln, bs, hl, hs))
+    out = kernel("encode", "hybrid_encode walk",
+                 lambda: hybrid_walk(w, ln, chains, hl))
+    print(f"encode: hybrid_encode: sequences re-walked in the stitch "
+          f"{int(hybrid_walk.last_rewalked.sum())}")
+    rows, ols, _ = layer("encode", "D2H rows + lengths + meta",
+                         lambda: _fetch_all(list(out)))
+    got = layer("encode", "assemble + content xxh32", lambda:
+                _assemble_frame_host(raw, [rows[b, : ols[b]]
+                                           for b in range(nblocks)],
+                                     lens, nblocks, bs, cfg, None))
+    if got.tobytes() != np.asarray(frame).tobytes():
+        raise AssertionError("the layers' frame differs from compress_frame")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mib", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0x51E51A)
-    ap.add_argument("--engine", choices=("split", "pallas"), default="split")
+    ap.add_argument("--engine", choices=("split", "pallas", "hybrid"),
+                    default="split")
     args = ap.parse_args()
 
     import torch
@@ -296,15 +337,15 @@ def main() -> int:
     n = len(raw)
     engine = args.engine
     cfg = FrameConfig(content_checksum=True)
-    if engine == "pallas":
+    if engine != "split":
         cfg = cfg.with_(block_size=65536, block_independence=True)
-    bs = cfg.resolved_block_size
     frame = pt.compress_frame(raw, cfg, engine=engine, device=dev)  # warm-up
-    if pt.decompress_frame(frame, engine=engine,
-                           device=dev).tobytes() != raw.tobytes():
+    if pt.decompress_frame(frame, engine="split" if engine == "hybrid"
+                           else engine, device=dev).tobytes() \
+            != raw.tobytes():
         raise AssertionError("round trip is not exact")
     res = {"card": card, "mib": args.mib, "encode": {}, "decode": {}}
-    if engine == "pallas":
+    if engine != "split":
         res["engine"] = engine
 
     def layer(side, name, fn, reps=3):
@@ -331,6 +372,8 @@ def main() -> int:
 
     if engine == "pallas":
         _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel)
+    elif engine == "hybrid":
+        _hybrid_layers(torch, pt, raw, frame, cfg, dev, layer, kernel)
     else:
         _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res)
         _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel,
@@ -338,9 +381,10 @@ def main() -> int:
 
     # -- device busy share -----------------------------------------------
     profiled = [("encode", lambda: pt.compress_frame(
-                    raw, cfg, engine=engine, device=dev)),
-                ("decode", lambda: pt.decompress_frame(
-                    frame, engine=engine, device=dev))]
+                    raw, cfg, engine=engine, device=dev))]
+    if engine != "hybrid":
+        profiled.append(("decode", lambda: pt.decompress_frame(
+            frame, engine=engine, device=dev)))
     if engine == "split":
         profiled.append(("decode_pallas", lambda: pt.decompress_frame(
             frame, engine="pallas", device=dev)))

@@ -52,9 +52,15 @@ which must be exact.
    with a dictionary).
 8. The engine="pallas" kernels against their plain versions, byte for
    byte, each timed with CUDA events: greedy_encode on 32 corpus blocks, 8
-   random, one zero, one short and one empty row, and on 256 KB and 4 MB
-   rows with repeats 65535 and 65536 bytes back (timed on the 64 MiB
-   frame's 1024 rows); token_decode on the 64 MiB frame's 1024 blocks, a
+   random, one zero, one short and one empty row and 10 rows aimed at its
+   warp steps (hash conflicts inside a step, a hit on lane 31, grown
+   steps, steps cut by mf_limit, the u16 table's edge), and on 256 KB and
+   4 MB rows with repeats 65535 and 65536 bytes back; timed on the 64 MiB
+   frame's 1024 rows (with its warp steps and hits per block) and on 16 x
+   4 MiB corpus rows (the int32 table; token_decode must give them back);
+   the lane-31 row must take exactly the probe at 0 and one warp step;
+   token_decode on the 64 MiB
+   frame's 1024 blocks, a
    dictionary batch and a batch with one row of random bytes;
    token_decode_linked on a linked 64 KB frame with a dictionary and
    stored blocks, an independent 4 MB-block frame and a linked frame of
@@ -73,13 +79,17 @@ which must be exact.
    point) against its plain version on the same packed chains, byte for
    byte with its meta lanes: 32 corpus rows, 8 random, one zero, one short
    and one empty row; 8 rows with a 32 KB dictionary as history; 8 linked
-   rows. Each batch's streams and meta lanes also equal the host
+   rows; 10 8 KB rows aimed at its segments and stitch (boundaries in a
+   long match and in literal runs, periodic and small-alphabet rows,
+   rows shorter than a segment), each batch with the sequences its stitch
+   walked again. Each batch's streams and meta lanes also equal the host
    serializer's (chain_serialize16_meta_native) over the same exact-word
    chains. Then the 64 MiB corpus at 64 KB independent blocks through
    compress_frame(engine="hybrid") (MB/s median of 3, launches): byte-
    identical to the split engine's frame with exact chains, decoded
    exactly by both engines, size against the engine="pallas" frame; the
-   kernel timed on the frame's 1024 rows.
+   kernel timed on the frame's 1024 rows, with the sequences its stitch
+   walked again.
 10. split_decode (the placed-literal decode) against its plain version,
    byte for byte: on the 64 MiB hybrid frame's blocks through
    parse_block_batch, a dictionary batch, and the main batch with one
@@ -532,6 +542,45 @@ def _far_row(n: int, at: int, rng) -> np.ndarray:
     return row
 
 
+def _greedy_hostile(rng) -> list:
+    """64 KB-or-shorter rows aimed at the greedy kernel's 32-probe steps:
+    a hit on lane 31 (first, a 48-byte row whose scan is the probe at 0
+    and one step: s = 0 misses, the step from s = 1 probes 1 + i on lane
+    i, and position 32 repeats position 0; then a 4 KB row), two probes of
+    one step that share a hash (equal words, and unequal words with one
+    hash, the later lane writing the table), a match found after the step
+    has grown past 1, rows whose steps mf_limit cuts, and a full 64 KB row
+    whose match source is position 0 (the u16 table's edge)."""
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    same = [np.frombuffer(np.uint32(x).tobytes(), np.uint8)
+            for x in (0xDE257AB6, 0x9B6E60A3)]   # one hash, two words
+    r = rand(4096)
+    r[32:36] = r[0:4]
+    rows = [r[:48].copy(), r]
+    r = rand(4096)
+    r[9:13] = r[2:6]
+    rows.append(r)
+    r = rand(4096)
+    r[2:6], r[9:13], r[40:44] = same[0], same[1], same[0]
+    rows.append(r)
+    r = rand(4096)
+    r[2:6], r[9:13], r[16:20] = same[0], same[1], same[0]
+    rows.append(r)
+    r = rand(16384)
+    r[12000:14000] = r[100:2100]
+    rows.append(r)
+    for n in (13, 40, 50, 77):
+        r = rand(n)
+        if n >= 20:
+            r[n - 15: n - 11] = r[1:5]
+        rows.append(r)
+    r = rand(65536)
+    r[65000:] = r[:536]
+    rows.append(r)
+    return rows
+
+
 def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
             default_frame, seed, tag):
     """The engine="pallas" kernels against their plain versions, timed;
@@ -556,16 +605,30 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
             for k in range(32)]
     rows += [rng.integers(0, 256, B, dtype=np.uint8) for _ in range(8)]
     rows += [np.zeros(B, np.uint8), corpus[:10], corpus[:0]]
+    hostile = _greedy_hostile(rng)
+    rows += hostile
     work = np.zeros((len(rows), B), np.uint8)
     lens = np.array([len(r) for r in rows], np.int64)
     for i, r in enumerate(rows):
         work[i, : len(r)] = r
     w, ln = torch.from_numpy(work).to(dev), torch.from_numpy(lens).to(dev)
     got = encode_blocks_pallas(w, ln, B)
+    lane31 = len(rows) - len(hostile)
+    st = encode_blocks_pallas.last_stats[lane31].tolist()
+    token, ext = got[0][lane31, :2].tolist()
+    if st != [2, 1] or token >> 4 != 15 or ext != 17:
+        raise AssertionError(f"greedy_encode's lane-31 row: warp steps and "
+                             f"hits {st}, not [2, 1] with 32 literals")
+    print(f"phase 8: greedy_encode lane-31 row: warp steps and hits {st} "
+          f"(the probe at 0, then one step whose lane 31 hits after 32 "
+          f"literals) {tag}")
     want, plain_ms = _timed(torch, lambda: encode_blocks_pallas_plain(w, ln,
                                                                       B))
     err = _compare(torch, f"greedy_encode {len(rows)} rows (32 corpus, 8 "
-                   "random, zero, short, empty)", got, want, tag, 8)
+                   f"random, zero, short, empty, {len(hostile)} hostile: "
+                   "hash conflicts in one warp step, a hit on lane 31, "
+                   "grown steps, steps cut by mf_limit, the u16 table's "
+                   "edge)", got, want, tag, 8)
     # past 64 KB the window check decides: repeats 65535 and 65536 back
     for bs, far in ((256 * 1024, [_far_row(256 * 1024, 150_000, rng),
                                   _json_payload(200_000)]),
@@ -584,7 +647,27 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
     mw = torch.from_numpy(mw).to(dev)
     ml = torch.from_numpy(ml.astype(np.int64)).to(dev)
     mout = encode_blocks_pallas(mw, ml, B)
+    st = encode_blocks_pallas.last_stats.cpu().double()
+    print(f"phase 8: greedy_encode {mw.shape[0]} x 64 KB: warp steps per "
+          f"block mean {float(st[:, 0].mean()):.1f} max "
+          f"{int(st[:, 0].max())}, hits per block mean "
+          f"{float(st[:, 1].mean()):.1f} max {int(st[:, 1].max())} {tag}")
     ms = _cuda_ms(torch, lambda: encode_blocks_pallas(mw, ml, B), 5)
+    bw = torch.from_numpy(corpus[: 16 * 4 * MIB].reshape(16, 4 * MIB)).to(dev)
+    bl = torch.full((16,), 4 * MIB, dtype=torch.int64, device=dev)
+    bout = encode_blocks_pallas(bw, bl, 4 * MIB)
+    st = encode_blocks_pallas.last_stats.cpu()
+    back = decode_blocks_pallas(bout[0], bout[1], 4 * MIB)
+    if not (torch.equal(back[0], bw) and torch.equal(back[1], bl)):
+        raise AssertionError("greedy_encode's 16 x 4 MiB rows do not decode "
+                             "back to their corpus bytes")
+    b_ms = _cuda_ms(torch, lambda: encode_blocks_pallas(bw, bl, 4 * MIB), 3)
+    print(f"phase 8: greedy_encode 16 x 4 MiB rows (int32 table): kernel "
+          f"{b_ms:.3f} ms ({len(corpus) / b_ms / 1e3:.1f} MB/s), "
+          f"{int(bout[1].sum())} B out (token_decode gives the rows back), "
+          f"warp steps per block max "
+          f"{int(st[:, 0].max())}, hits max {int(st[:, 1].max())}, bound "
+          f"{_bound_ms(bw, bl, int(bout[1].sum()), bout[1]):.4f} ms {tag}")
     # payload and lengths in, the encoded streams and lengths out
     res["greedy_encode"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -846,13 +929,29 @@ def _split_exact_frame(pt, corpus, cfg, dev):
         st, chains.cpu().numpy()), lens, nb, bs, cfg, None)
 
 
+def _walk_hostile(rng) -> list:
+    """8 KB-or-shorter rows aimed at the segmented walk: a long match over
+    several segment boundaries, a row of literals with one short match,
+    periodic rows, small-alphabet rows whose segments meet late (the stitch
+    walks on), and rows shorter than a segment."""
+    def rand(n, a=256):
+        return rng.integers(0, a, n, dtype=np.uint8)
+    long_match, lits = rand(8192), rand(8192)
+    long_match[1500:6000] = long_match[100:4600]
+    lits[6000:6050] = lits[300:350]
+    periodic = [np.tile(rand(p), 8192 // p + 1)[:8192] for p in (4, 53)]
+    return [long_match, lits] + periodic + [rand(8192, a) for a in (2, 3, 4)] \
+        + [rand(10), rand(40), _json_payload(300)]
+
+
 def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
     """engine="hybrid": the walk kernel against its plain version and the
     host serializer, then the 64 MiB frame. Returns (JSON fields, the
     hybrid frame)."""
     from divortio_lz4_tpu_torch import FrameConfig
     from divortio_lz4_tpu_torch.ops.hybrid_encode import (
-        build_chains, build_dist_chains, hybrid_walk, hybrid_walk_plain)
+        WALK_WARPS, build_chains, build_dist_chains,
+        hybrid_walk, hybrid_walk_plain)
     from divortio_lz4_tpu_torch.ops.split_encode import (
         chain_select_serialize_meta)
     from divortio_lz4_tpu_torch.parallel.device import (_blocks_to_batch,
@@ -878,16 +977,23 @@ def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
         "8 linked rows": (torch.from_numpy(lwork).to(dev),
                           torch.from_numpy(llens.astype(np.int64)).to(dev),
                           B, torch.from_numpy(lstart).to(dev)),
+        "8 KB hostile rows (segment boundaries in a long match and in "
+        "literal runs, periodic rows, small alphabets, shorter than a "
+        "segment)": _rows_batch(torch, _walk_hostile(rng), dev, 8192) + (0,),
     }
     err, plain_ms = 0, None
     for name, (w, ln, hl, hs) in batches.items():
         chains = build_chains(w, ln, hl, hs)
         got = hybrid_walk(w, ln, chains, hl)
+        redo = hybrid_walk.last_rewalked
         want, p_ms = _timed(torch, lambda: hybrid_walk_plain(w, ln, chains,
                                                              hl))
         plain_ms = p_ms if plain_ms is None else plain_ms
         err = max(err, _compare(torch, f"hybrid_encode {name}", got, want,
                                 tag, 9))
+        print(f"phase 9: hybrid_encode {name}: {WALK_WARPS} warps a row, "
+              f"{int(redo.sum())} sequences re-walked in the stitch (max "
+              f"{int(redo.max())} a row) {tag}")
         # the host serializer over the same exact-word chains (u16 form)
         d16 = build_dist_chains(w, ln, hl, hs, hashed=False).cpu().numpy()
         work_np, lens_np = w.cpu().numpy(), ln.cpu().numpy()
@@ -943,6 +1049,7 @@ def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
     chains = torch.cat([build_chains(mw[i: i + 128], ml[i: i + 128], 0, 0)
                         for i in range(0, mw.shape[0], 128)])
     mout = hybrid_walk(mw, ml, chains, 0)
+    redo = hybrid_walk.last_rewalked
     ms = _cuda_ms(torch, lambda: hybrid_walk(mw, ml, chains, 0), 5)
     # In: the payload once, the chain entries the walk reads (chain[0] of
     # every row, then one per match sequence, counted from the streams) and
@@ -954,6 +1061,9 @@ def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
     res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, launches=launches,
                bound_ms=_bound_ms(total, 4 * (mw.shape[0] + seqs), ml,
                                   int(ol_np.sum()), mout[1], mout[2]))
+    print(f"phase 9: hybrid_encode {mw.shape[0]} x 64 KB: {WALK_WARPS} "
+          f"warps a row, {int(redo.sum())} of {seqs} sequences re-walked in "
+          f"the stitch (max {int(redo.max())} a row) {tag}")
     print(f"phase 9: hybrid_encode {mw.shape[0]} x 64 KB (the 64 MiB "
           f"frame's rows, {seqs} match sequences): kernel {ms:.3f} ms "
           f"({n / ms / 1e3:.1f} MB/s), plain {plain_ms:.1f} ms on the "

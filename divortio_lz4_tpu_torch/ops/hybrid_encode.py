@@ -18,7 +18,9 @@ Port of ``divortio_lz4_tpu/ops/hybrid_encode.py``.
   in ``csrc/greedy_encode.cu``, sharing the greedy encoder's emitter) on a
   CUDA tensor or raises; on a CPU tensor it runs ``hybrid_walk_plain``, the
   same function in plain PyTorch. With exact-word chains its streams are
-  byte-identical to the split encode's with ``exact=True``.
+  byte-identical to the split encode's with ``exact=True``. The kernel walks
+  each row in WALK_WARPS segments at once and stitches them;
+  ``hybrid_walk_segmented_plain`` renders that algorithm for the tests.
 
 Rows are a batch dimension (the JAX code vmaps one row). The JAX code does
 its hash and fingerprint math in uint32; here every such value lives in an
@@ -31,6 +33,7 @@ unique and ``torch.sort`` reproduces ``jax.lax.sort``'s order exactly.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 
@@ -41,7 +44,7 @@ from .._build import load_library
 from .._device import resolve_device
 from ..constants import (LAST_LITERALS, MF_LIMIT, MIN_MATCH, WINDOW_SIZE,
                          block_bound)
-from .emit import ext_count, extend, serialize
+from .emit import EXT_STEP, ext_count, extend, serialize
 
 _M32 = 0xFFFFFFFF
 
@@ -57,6 +60,10 @@ _B1_INV = pow(_B1, -1, 1 << 32)
 
 # Sort-predecessors scored per position (hybrid_encode.py:224).
 PREDS = (1, 2, 3, 4, 6, 8)
+
+# Segments (warps) per row of the CUDA walk, the kernel's W (32 measured
+# fastest of 8, 16 and 32, PERF.md section 6).
+WALK_WARPS = 32
 
 
 def _mul32(a: torch.Tensor, b) -> torch.Tensor:
@@ -278,7 +285,7 @@ def hybrid_max_bs() -> int:
 def _kernel():
     fn = load_library("greedy_encode").lz4t_hybrid_encode
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, i64, i64, i64, p, p, i64, p, p, p, p]
+    fn.argtypes = [p, i64, i64, i64, p, p, i64, p, p, p, p, i64, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -316,33 +323,41 @@ def hybrid_walk(work: torch.Tensor, lens: torch.Tensor,
     trailing literal count, and the last match sequence's stream offset
     and payload anchor (-1 where there is none). On CUDA the kernel is
     queued on the current stream and nothing synchronises; ``launches``
-    counts those launches."""
+    counts those launches, and ``last_rewalked`` holds the last launch's
+    i64[nb]: the sequences its stitch walked again per row."""
     _check_walk(work, lens, chains, hist_len)
     if work.device.type == "cpu":
         return hybrid_walk_plain(work, lens, chains, hist_len)
     if work.device.type != "cuda":
         raise ValueError(f"no hybrid encode for device {work.device}")
     nb, B = work.shape[0], work.shape[1] - hist_len
+    dev = work.device
     ow = block_bound(B)
-    out = torch.empty((nb, ow), dtype=torch.uint8, device=work.device)
-    out_lens = torch.empty(nb, dtype=torch.int64, device=work.device)
-    meta = torch.empty((nb, 4), dtype=torch.int64, device=work.device)
+    out = torch.empty((nb, ow), dtype=torch.uint8, device=dev)
+    out_lens = torch.empty(nb, dtype=torch.int64, device=dev)
+    meta = torch.empty((nb, 4), dtype=torch.int64, device=dev)
     if nb == 0:
         return out, out_lens, meta
+    rewalked = torch.empty(nb, dtype=torch.int64, device=dev)
+    # a row's walk has at most B / 4 + 1 sequences: the stitch's scratch
+    redo = torch.empty((nb, B // 4 + 2), dtype=torch.int32, device=dev)
     fn = _kernel()
-    with torch.cuda.device(work.device):
-        stream = torch.cuda.current_stream(work.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(work.data_ptr(), nb, work.shape[1], hist_len,
                 lens.data_ptr(), chains.data_ptr(), ow, out.data_ptr(),
-                out_lens.data_ptr(), meta.data_ptr(), stream)
+                out_lens.data_ptr(), meta.data_ptr(), redo.data_ptr(),
+                redo.shape[1], rewalked.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"hybrid_encode kernel launch failed: "
                            f"cudaError {rc}")
     hybrid_walk.launches += 1
+    hybrid_walk.last_rewalked = rewalked
     return out, out_lens, meta
 
 
 hybrid_walk.launches = 0
+hybrid_walk.last_rewalked = None
 
 
 def hybrid_walk_plain(work: torch.Tensor, lens: torch.Tensor,
@@ -387,6 +402,133 @@ def hybrid_walk_plain(work: torch.Tensor, lens: torch.Tensor,
     last_d = torch.where(last_anchor >= 0, token_pos - last_size, none)
     return out, out_lens, torch.stack([token_pos, tail, last_d,
                                        last_anchor], 1)
+
+
+def _extend_row(row, a, b, limit):
+    """The first k >= 0 with a + k >= limit or row[a + k] != row[b + k]
+    (b < a), in steps of EXT_STEP bytes."""
+    k = 0
+    while True:
+        n = min(EXT_STEP, limit - (a + k))
+        if n <= 0:
+            return k
+        neq = (row[a + k: a + k + n] != row[b + k: b + k + n]).nonzero()
+        if len(neq):
+            return k + int(neq[0])
+        k += n
+
+
+def _segmented_row(row, hist_len, chain, n, segments):
+    """One row of hybrid_walk_segmented_plain: [(start anchor, re-walked
+    sequences, kept sequences)] per segment, each sequence (m, mlen - 4),
+    and the final anchor."""
+    mf_limit, match_limit = n - MF_LIMIT, n - LAST_LITERALS
+    S = -(-n // segments)
+
+    def step(a):
+        e = chain[a]
+        m = e >> 16
+        if m >= mf_limit:
+            return None                  # no match left in the row
+        at = hist_len + m + MIN_MATCH
+        return m, _extend_row(row, at, at - (e & 0xFFFF),
+                              hist_len + match_limit)
+
+    def end(sq):
+        return sq[0] + MIN_MATCH + sq[1]
+
+    lists, exits = [], []
+    for w in range(segments):            # the speculative walks
+        a, lst = min(w * S, n), []
+        hi = min(a + S, n)
+        while a < hi:
+            sq = step(a)
+            if sq is None:
+                break
+            lst.append(sq)
+            a = end(sq)
+        lists.append(lst)
+        exits.append(a)
+    groups = [(0, [], lists[0])]
+    x, ended = exits[0], False
+    for g in range(1, segments):         # the stitch, in segment order
+        start, redo, lst = x, [], lists[g]
+        keep = len(lst)
+        while not ended and x < exits[g]:
+            j = bisect.bisect_left([m for m, _ in lst], x)
+            if j < len(lst) and (min(g * S, n) if j == 0
+                                 else end(lst[j - 1])) <= x:
+                keep, x = j, exits[g]    # x lies in sequence j's gap
+                break
+            sq = step(x)
+            if sq is None:
+                ended = True
+                break
+            redo.append(sq)
+            x = end(sq)
+        groups.append((start, redo, lst[keep:]))
+    return groups, x
+
+
+def hybrid_walk_segmented_plain(work: torch.Tensor, lens: torch.Tensor,
+                                chains: torch.Tensor, hist_len: int = 0,
+                                segments: int = WALK_WARPS):
+    """The CUDA walk's algorithm in plain PyTorch, for the tests: each row
+    walked speculatively in *segments* segments, stitched in order (a
+    segment's list is kept from the sequence whose gap [anchor, m] holds
+    the true entry anchor, else the walk goes on from it), the groups'
+    sizes summed and scanned into stream offsets. Returns hybrid_walk's
+    (out, out_lens, meta), out_lens and meta from those offsets, and the
+    re-walked sequences per row."""
+    _check_walk(work, lens, chains, hist_len)
+    dev = work.device
+    nb, B = work.shape[0], work.shape[1] - hist_len
+    src_len = lens.clamp(0, B)
+    chain = (chains.to(torch.int64) & _M32).tolist()
+    seqs, out_lens, meta, rewalked, tails = [], [], [], [], []
+    for r in range(nb):
+        n = int(src_len[r])
+        groups, x = _segmented_row(work[r].to(torch.int64), hist_len,
+                                   chain[r], n, segments)
+        rows, totals = [], []
+        for start, redo, kept in groups:
+            at, size = start, 0
+            for m, k in redo + kept:
+                lit = m - at
+                rows.append((at, lit, chain[r][m] & 0xFFFF, k + MIN_MATCH))
+                size += 3 + _ext(lit) + lit + _ext(k)
+                at = m + MIN_MATCH + k
+            totals.append(size)
+        base = np.cumsum([0] + totals)      # each group's stream offset
+        tot, tail = int(base[-1]), n - x
+        sizes = [3 + _ext(lit) + lit + _ext(ml - MIN_MATCH)
+                 for _, lit, _, ml in rows]
+        last_d = tot - sizes[-1] if rows else -1
+        meta.append([tot, tail, last_d, rows[-1][0] if rows else -1])
+        out_lens.append(tot + 1 + _ext(tail) + tail if n else 0)
+        rewalked.append(sum(len(g[1]) for g in groups))
+        seqs.append(rows)
+        tails.append(x)
+    width = max([len(s) for s in seqs] + [0])
+    cols = torch.zeros((5, nb, width), dtype=torch.int64)
+    for r, rows in enumerate(seqs):
+        if rows:
+            cols[1:, r, : len(rows)] = torch.tensor(rows).T
+            cols[0, r, : len(rows)] = 1
+    cols = cols.to(dev)
+    hits = [(cols[0, :, c] == 1, cols[1, :, c], cols[2, :, c],
+             cols[3, :, c], cols[4, :, c]) for c in range(width)]
+    out, _ = serialize(work[:, hist_len:], src_len, hits,
+                       torch.tensor(tails, dtype=torch.int64, device=dev),
+                       block_bound(B))
+    return (out, torch.tensor(out_lens, dtype=torch.int64, device=dev),
+            torch.tensor(meta, dtype=torch.int64, device=dev).view(nb, 4),
+            torch.tensor(rewalked, dtype=torch.int64, device=dev))
+
+
+def _ext(v: int) -> int:
+    """ext_count of one int."""
+    return 1 + (v - 15) // 255 if v >= 15 else 0
 
 
 def encode_blocks_hybrid(work: torch.Tensor, lens: torch.Tensor,

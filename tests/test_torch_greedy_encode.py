@@ -108,6 +108,90 @@ def test_window_check_in_256k_blocks(level):
     assert got.tobytes() == want.tobytes()
 
 
+# Two little-endian words with one hash (hash 0 of the 14-bit table).
+_SAME_HASH = (0xDE257AB6, 0x9B6E60A3)
+
+
+def _hostile(case: str):
+    """(rows, block size) for the kernel's batched probes: hash conflicts
+    inside one warp step, a hit on lane 31, miss runs whose step has grown
+    past 1, batches cut by mf_limit, the u16 table's edge, the int32
+    table's window, and the plain cases."""
+    rng = np.random.default_rng(len(case))
+    r = rng.integers(0, 256, 4 * KB, dtype=np.uint8)
+    if case == "batch_hash_equal_words":
+        r[9:13] = r[2:6]                  # lane 9's candidate is lane 2
+        return [r], 4 * KB
+    if case == "batch_hash_unequal_words":
+        a, b = (np.frombuffer(np.uint32(x).tobytes(), np.uint8)
+                for x in _SAME_HASH)
+        r[2:6], r[9:13], r[40:44] = a, b, a     # lane 9 writes the table
+        r2 = rng.integers(0, 256, 4 * KB, dtype=np.uint8)
+        r2[2:6], r2[9:13], r2[16:20] = a, b, a  # lane 16's candidate: 9
+        return [r, r2], 4 * KB
+    if case == "hit_on_lane_31":
+        # s = 0 misses; the step from s = 1 probes 1 + i on lane i, so
+        # position 32 is lane 31. The 48-byte row ends the scan after it.
+        r[32:36] = r[0:4]
+        return [r[:48].copy(), r], 4 * KB
+    if case == "grown_step":
+        r = rng.integers(0, 256, 16 * KB, dtype=np.uint8)
+        r[12000:14000] = r[100:2100]
+        return [r, rng.integers(0, 256, 16 * KB, dtype=np.uint8)], 16 * KB
+    if case == "cut_by_mf_limit":
+        rows = []
+        for n in (13, 17, 40, 45, 50, 60, 77):
+            x = rng.integers(0, 256, n, dtype=np.uint8)
+            if n >= 20:                   # a hit in the cut step
+                x[n - 15: n - 11] = x[1:5]
+            rows.append(x)
+        return rows, KB
+    if case == "u16_edge_64k":
+        r = rng.integers(0, 256, 64 * KB, dtype=np.uint8)
+        r[65000:] = r[: 64 * KB - 65000]          # source at position 0
+        return [r, np.zeros(64 * KB, np.uint8)], 64 * KB
+    if case == "window_256k":
+        return [_far_row(200_000, 80_000, 1)], 256 * KB
+    return _rows(4), 4 * KB
+
+
+HOSTILE = ["batch_hash_equal_words", "batch_hash_unequal_words",
+           "hit_on_lane_31", "grown_step", "cut_by_mf_limit", "u16_edge_64k",
+           "window_256k", "zero_short_empty_random"]
+
+
+@pytest.mark.parametrize("case", HOSTILE)
+def test_batched_rendition_matches_plain_and_jax(case):
+    """encode_blocks_pallas_batched_plain (the kernel's 32-probe steps)
+    equals the plain scan, the host encoder and, on rows of at most 16 KB,
+    the JAX kernel in interpret mode."""
+    rows, B = _hostile(case)
+    work, lens = _batch(rows, B)
+    w, ln = torch.from_numpy(work), torch.from_numpy(lens)
+    out, out_lens, stats = pt_ge.encode_blocks_pallas_batched_plain(w, ln, B)
+    want = pt_ge.encode_blocks_pallas_plain(w, ln, B)
+    assert torch.equal(out, want[0]) and torch.equal(out_lens, want[1])
+    assert stats.shape == (len(rows), 2) and (stats[:, 1] <= stats[:, 0]).all()
+    for i, n in enumerate(out_lens.tolist()):
+        ref = np.asarray(lz4.compress_raw(work[i, : lens[i]])) if lens[i] \
+            else np.zeros(0, np.uint8)
+        np.testing.assert_array_equal(out[i, :n].numpy(), ref,
+                                      err_msg=f"row {i}")
+    if B <= 16 * KB:
+        jo, jl = jax_pe.encode_blocks_pallas(
+            jnp.asarray(work.astype(np.int32)),
+            jnp.asarray(lens.astype(np.int32)), B, True)
+        np.testing.assert_array_equal(out_lens.numpy(), np.asarray(jl))
+        for i, n in enumerate(np.asarray(jl)):
+            np.testing.assert_array_equal(out[i, :n].numpy(),
+                                          np.asarray(jo)[i, :n])
+    if case == "hit_on_lane_31":           # 32 literals, then the match
+        for i in range(2):
+            assert int(out[i, 0]) >> 4 == 15 and int(out[i, 1]) == 17
+        # one probe at s = 0, then the batched step whose lane 31 hits
+        assert stats[0].tolist() == [2, 1]
+
+
 def _payload(seed: int) -> np.ndarray:
     """40 KB of JSON-like records, then 70 KB of random bytes: compressed
     and stored 64 KB blocks in one payload, few probes per block."""
@@ -171,7 +255,9 @@ def test_cuda_kernel_matches_plain(cuda):
     rng = np.random.default_rng(4)
     batches = {
         64 * KB: _rows(4) + [mixed_payload(65536, s) for s in range(4)]
-        + [rng.integers(0, 256, 65536, dtype=np.uint8)],
+        + [rng.integers(0, 256, 65536, dtype=np.uint8)]
+        + _hostile("u16_edge_64k")[0]
+        + [x for c in HOSTILE[:5] for x in _hostile(c)[0]],
         # past 64 KB the window check decides: repeats 65535 and 65536 back
         256 * KB: [_far_row(256 * KB, 150_000, 5), mixed_payload(90_000, 6)],
         4 * 1024 * KB: [_far_row(4 * 1024 * KB, 3 * 1024 * KB, 7)],
@@ -185,3 +271,8 @@ def test_cuda_kernel_matches_plain(cuda):
         assert pt_ge.encode_blocks_pallas.launches == before + 1
         torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
         torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+        if B == 64 * KB:      # the warp steps and hits of the rendition
+            torch.testing.assert_close(
+                pt_ge.encode_blocks_pallas.last_stats.cpu(),
+                pt_ge.encode_blocks_pallas_batched_plain(w, ln, B)[2],
+                rtol=0, atol=0)

@@ -128,6 +128,73 @@ def test_plain_walk_matches_jax_kernel(case):
         assert not out[i, n:].any()
 
 
+def _segment_case(case):
+    """(rows, B, history rows or None, hist_start) for the segmented walk:
+    segment boundaries inside a long match and inside literal runs, the
+    periodic adversarial rows, small-alphabet rows whose segments meet late
+    (the stitch walks on), rows shorter than a segment, an empty row and a
+    dictionary row."""
+    rng = np.random.default_rng(len(case))
+    B = 16 * KB
+    r = rng.integers(0, 256, B, dtype=np.uint8)
+    if case == "boundary_in_long_match":
+        r[3000:9000] = r[100:6100]
+        return [r], B, None, 0
+    if case == "boundary_in_literal_run":
+        r[12000:12100] = r[500:600]
+        return [r, make_compressible(B)], B, None, 0
+    if case.startswith("adversarial_"):
+        rows = [_adversarial_cases(rng)[k][:B] for k in case[12:].split("+")]
+        return rows, B, None, 0
+    if case == "small_alphabet":
+        return [rng.integers(0, a, B, dtype=np.uint8) for a in (2, 3, 4)], \
+            B, None, 0
+    if case == "shorter_than_segment":
+        return [r[:10], r[:20], make_compressible(100)[:100],
+                make_compressible(700)], 2048, None, 0
+    if case == "empty":
+        return [np.zeros(0, np.uint8), r], B, None, 0
+    d = make_compressible(8000)               # the dictionary row
+    hist = np.zeros((1, W), np.uint8)
+    hist[0, W - len(d):] = d
+    return [make_compressible(6000)], 6 * KB, hist, W - len(d)
+
+
+SEGMENT_CASES = ["boundary_in_long_match", "boundary_in_literal_run",
+                 "adversarial_period53+period4+runs",
+                 "adversarial_period8+period64+period53_mut",
+                 "small_alphabet", "shorter_than_segment", "empty",
+                 "dictionary_row"]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segmented_rendition_matches_plain_and_jax(case):
+    """hybrid_walk_segmented_plain (the kernel's speculative segments,
+    stitch and offsets) equals hybrid_walk_plain at 8, 16 and 32 segments,
+    out_len and meta lanes included, and the JAX kernel in interpret
+    mode."""
+    rows, B, hist, hs = _segment_case(case)
+    work, lens = _batch(rows, B, hist)
+    hl = 0 if hist is None else W
+    w, ln = torch.from_numpy(work), torch.from_numpy(lens)
+    chains = pt_he.build_chains(w, ln, hl, torch.as_tensor(hs))
+    want = pt_he.hybrid_walk_plain(w, ln, chains, hl)
+    rewalked = 0
+    for segs in (8, 16, 32):
+        *got, redo = pt_he.hybrid_walk_segmented_plain(w, ln, chains, hl,
+                                                       segs)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), segs
+        rewalked += int(redo.sum())
+    if case == "small_alphabet":            # the stitch walked on
+        assert rewalked > 0
+    jo, jl, jmeta = _jax_walk(work, lens, B, hl, hs)
+    np.testing.assert_array_equal(want[1].numpy(), jl)
+    np.testing.assert_array_equal(want[2].numpy(), jmeta)
+    for i, n in enumerate(jl):
+        np.testing.assert_array_equal(want[0][i, :n].numpy(), jo[i, :n])
+
+
 SPLIT_EXACT = sorted(CASES) + [f"adversarial_{k}" for k in (
     "period53", "period4", "period8", "period64", "runs", "aligned_pages",
     "runs_spacers", "period53_mut")]
@@ -236,6 +303,7 @@ def test_cuda_kernel_matches_plain(cuda):
         rng.integers(0, 256, W, dtype=np.uint8), np.zeros(W, np.uint8),
         np.arange(10, dtype=np.uint8), np.zeros(0, np.uint8)]
     cases = [(_mixed_rows(3), 2048, None, 0), (rows64, W, None, 0)]
+    cases += [_segment_case(c) for c in SEGMENT_CASES]
     for kind in ("dictionary", "linked"):
         rows, hist, hs = _history_case(kind, 9)
         cases.append((rows, 4 * KB, hist, hs))
@@ -251,3 +319,9 @@ def test_cuda_kernel_matches_plain(cuda):
         assert pt_he.hybrid_walk.launches == before + 1
         for g, x in zip(got, want):
             torch.testing.assert_close(g.cpu(), x.cpu(), rtol=0, atol=0)
+        # the stitch re-walks what the rendition re-walks
+        chains = pt_he.build_chains(w, ln, hl, hs)
+        redo = pt_he.hybrid_walk_segmented_plain(
+            w.cpu(), ln.cpu(), chains.cpu(), hl, pt_he.WALK_WARPS)[3]
+        torch.testing.assert_close(pt_he.hybrid_walk.last_rewalked.cpu(),
+                                   redo, rtol=0, atol=0)
