@@ -17,7 +17,11 @@ those of the default frame's route through parallel/device.py:
   chain_decode kernel, D2H of the output, content xxh32;
 - the same frame decoded with engine="pallas" ("decode_pallas"): block
   index, host scan + rows + H2D, token_decode_linked kernel, D2H of the
-  output and lengths, join, content xxh32.
+  output and lengths, join, content xxh32;
+- the corpus at 256 KB independent blocks decoded by the split engine
+  ("decode_256k"): block index, host record parse, H2D, wire_decode
+  kernel (its stages: dst scan, conformance, spans, rounds, gather,
+  serial walk), D2H.
 
 Both chain kernels' resolve stats (pointer-doubling rounds, scratch bytes
 and, on the record path, chains decoded serially) are printed beside their
@@ -31,7 +35,9 @@ independent blocks with a content checksum, whose layers are
   events), D2H of the rows and lengths, frame assembly with the content
   xxh32;
 - decode: block index, padded comp rows + H2D, token_decode kernel (CUDA
-  events), D2H of the rows and lengths, joining rows, content xxh32.
+  events; its stages under torch.profiler: split parse, stitch, copy
+  groups, serial route; and its per-block stats), D2H of the rows and
+  lengths, joining rows, content xxh32.
 
 With ``--engine hybrid`` the frame is the engine="hybrid" one (64 KB
 independent blocks, content checksum; encode only, since hybrid decode is
@@ -193,6 +199,44 @@ def _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res):
         raise AssertionError("the layers' output differs from the corpus")
 
 
+def _wire_decode(torch, pt, raw, dev, layer, kernel, res):
+    """The corpus at 256 KB independent blocks, decoded by the split
+    engine: host parse into padded records, H2D, wire_decode (its stages
+    under torch.profiler), D2H."""
+    from divortio_lz4_tpu_torch.config import FrameConfig
+    from divortio_lz4_tpu_torch.ops.wire_decode import (decode_blocks_wire,
+                                                         parse_wire_batch)
+    from divortio_lz4_tpu_torch.parallel.device import parse_block_index
+
+    side = "decode_256k"
+    res[side] = {}
+    frame = pt.compress_frame(raw, FrameConfig(block_size=256 * 1024,
+                                               block_independence=True),
+                              engine="pallas", device=dev)
+    res[side]["decompress_frame"] = _median_ms(
+        torch, lambda: pt.decompress_frame(frame, device=dev))[0]
+    _, blocks, _ = layer(side, "parse_block_index",
+                         lambda: parse_block_index(frame))
+    entries = [(frame[o: o + n], st) for o, n, st in blocks]
+    wire, recs, counts, out_lens, _ = layer(
+        side, "parse records (host)",
+        lambda: parse_wire_batch(entries, 256 * 1024, None))
+    args = layer(side, "H2D wire + records", lambda: [
+        torch.from_numpy(a).to(dev) for a in (wire, recs, counts)])
+    out = kernel(side, "wire_decode",
+                 lambda: decode_blocks_wire(*args, 256 * 1024),
+                 f", {int(counts.sum())} records")
+    res[side]["resolve"] = decode_blocks_wire.last.stats()
+    print(f"{side}: wire_decode: {res[side]['resolve']}")
+    _per_kernel(torch, side, "wire_decode",
+                lambda: decode_blocks_wire(*args, 256 * 1024), res)
+    rows = layer(side, "D2H output", lambda: out.cpu().numpy())
+    got = np.concatenate([rows[i, : out_lens[i]] for i in range(len(rows))])
+    if got.tobytes() != raw.tobytes():
+        raise AssertionError("the 256 KB layers' output differs from the "
+                             "corpus")
+
+
 def _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel, res):
     """The default frame's decode with engine="pallas": host scan, one
     token chain for the linked frame, token_decode_linked."""
@@ -229,7 +273,7 @@ def _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel, res):
                              "corpus")
 
 
-def _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel):
+def _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res):
     """The engine="pallas" 64 KB frame's layers."""
     from divortio_lz4_tpu_torch.ops.greedy_encode import encode_blocks_pallas
     from divortio_lz4_tpu_torch.ops.token_decode import decode_blocks_pallas
@@ -267,6 +311,12 @@ def _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel):
                                                       dev))
     dec = kernel("decode", "token_decode",
                  lambda: decode_blocks_pallas(comp, clens, bs))
+    st = decode_blocks_pallas.last_stats.cpu().long()
+    print(f"decode: token_decode stats (sequences, re-walked, in order, "
+          f"serial): sums {st.sum(0).tolist()}, maxima "
+          f"{st.max(0).values.tolist()}")
+    _per_kernel(torch, "decode", "token_decode",
+                lambda: decode_blocks_pallas(comp, clens, bs), res)
     rows, ols = layer("decode", "D2H rows + lengths",
                       lambda: _fetch_all(list(dec)))
     out_np = layer("decode", "join rows", lambda: np.concatenate([
@@ -371,13 +421,14 @@ def main() -> int:
         return out
 
     if engine == "pallas":
-        _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel)
+        _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res)
     elif engine == "hybrid":
         _hybrid_layers(torch, pt, raw, frame, cfg, dev, layer, kernel)
     else:
         _split_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res)
         _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel,
                                res)
+        _wire_decode(torch, pt, raw, dev, layer, kernel, res)
 
     # -- device busy share -----------------------------------------------
     profiled = [("encode", lambda: pt.compress_frame(

@@ -32,10 +32,12 @@ which must be exact.
    frame, 4 independent 1 MB blocks, a linked frame with a dictionary, a
    giant-RLE block and a batch with one chain of random records;
    wire_decode on the 64 MiB corpus's 256 independent 256 KB blocks (the
-   batch phase 6 decodes) and on 32 such blocks with a dictionary. Every
-   chain decode prints its pointer-doubling rounds, chains routed to the
-   serial walk and scratch bytes; the serial count must be 0, and 1 on
-   the random-record batch.
+   batch phase 6 decodes), on 32 such blocks with a dictionary, and on
+   that batch with one block's records replaced by random words with
+   offsets below 64. Every chain and wire decode prints its
+   pointer-doubling rounds, chains (blocks) routed to the serial walk and
+   scratch bytes; the serial count must be 0, and 1 on each random-record
+   batch.
 6. The default frame (FrameConfig(): 4 MB linked blocks) at 64 MiB, with a
    content checksum, through compress_frame / decompress_frame: exact
    round trip, decoded exactly by engine="pallas", size against the
@@ -59,9 +61,11 @@ which must be exact.
    frame's 1024 rows (with its warp steps and hits per block) and on 16 x
    4 MiB corpus rows (the int32 table; token_decode must give them back);
    the lane-31 row must take exactly the probe at 0 and one warp step;
-   token_decode on the 64 MiB
-   frame's 1024 blocks, a
-   dictionary batch and a batch with one row of random bytes;
+   token_decode on the 64 MiB frame's 1024 blocks, a dictionary batch and
+   the frame's first 64 rows with one of them random bytes (no history),
+   each with its per-block stats
+   (sequences, sequences the stitch walked again, matches copied in order,
+   serial blocks: 0, and exactly 1 with the random row);
    token_decode_linked on a linked 64 KB frame with a dictionary and
    stored blocks, an independent 4 MB-block frame and a linked frame of
    three 4 MB blocks, each also decoded to its plaintext, and that linked
@@ -239,15 +243,32 @@ def _chain_batch(frame, window, device):
 
 
 def _resolve_stats(fn, what: str, serial: int = 0) -> dict:
-    """The stats of *fn*'s last CUDA call (decode_chains or
-    decode_token_chains: rounds, scratch bytes and, for decode_chains,
-    chains decoded serially); raises unless exactly *serial* chains took
-    the record path's serial route (the token path has none)."""
+    """The stats of *fn*'s last CUDA call (decode_chains,
+    decode_blocks_wire or decode_token_chains: rounds, scratch bytes and,
+    on the record path, chains decoded serially); raises unless exactly
+    *serial* chains took the record path's serial route (the token path
+    has none)."""
     stats = fn.last.stats()
     if stats.get("serial_chains", 0) != serial:
         raise AssertionError(f"{what}: {stats['serial_chains']} chains took "
                              f"the serial route, expected {serial}")
     return stats
+
+
+def _token_stats(fn, what: str, serial: int) -> str:
+    """The per-block stats of decode_blocks_pallas's last CUDA call, as
+    sums and maxima; raises unless exactly *serial* blocks took the serial
+    route."""
+    st = fn.last_stats.cpu().long()
+    if int(st[:, 3].sum()) != serial:
+        raise AssertionError(f"token_decode {what}: {int(st[:, 3].sum())} "
+                             f"blocks took the serial route, expected "
+                             f"{serial}")
+    names = ("sequences", "re-walked in the stitch",
+             "matches copied in order")
+    parts = [f"{n} {int(st[:, i].sum())} (max {int(st[:, i].max())} a "
+             f"block)" for i, n in enumerate(names)]
+    return ", ".join(parts) + f", serial blocks {serial}"
 
 
 def _stats_text(stats: dict) -> str:
@@ -355,18 +376,46 @@ def _phase5(torch, pt, dev, corpus, seed, tag):
         wire_err = max(wire_err, _compare(
             torch, name, decode_blocks_wire(*args_),
             decode_blocks_wire_plain(*args_), tag))
+        stats = _resolve_stats(decode_blocks_wire, name, 0)
+        print(f"phase 5: {name}: {int(counts.sum())} records; "
+              f"{_stats_text(stats)} {tag}")
         if timed is None:
             # wire bytes, records (8 B each) and counts in, decoded bytes out
             timed, timed_name = args_, name
             wire_need = _wire_bytes(entries) + 8 * int(counts.sum()) \
                 + 4 * len(counts) + int(out_lens.sum())
+    # hostile: one block of the dictionary batch holds random words whose
+    # offsets are below 64 (matches reaching into themselves, offsets of
+    # 0): it fails the conformance check and takes the serial walk
+    h = int(torch.argmax(args_[2]))
+    n = int(args_[2][h])
+    words = rng.integers(0, 2**32, (n, 2), dtype=np.uint64)
+    words[:, 1] = (words[:, 1] & ~np.uint64(0xFFFF)) \
+        | (words[:, 1] & np.uint64(63))
+    recs_h = args_[1].clone()
+    recs_h[h, :n] = torch.from_numpy(
+        words.astype(np.uint32).view(np.int32)).to(dev)
+    hargs = [args_[0], recs_h] + args_[2:]
+    hgot = decode_blocks_wire(*hargs)
+    wire_err = max(wire_err, _compare(
+        torch, f"wire_decode, block {h} random records", hgot,
+        decode_blocks_wire_plain(*hargs), tag))
+    stats = _resolve_stats(decode_blocks_wire, "wire_decode hostile", 1)
+    dgot = decode_blocks_wire(*args_)
+    others = [i for i in range(dgot.shape[0]) if i != h]
+    if not torch.equal(hgot[others], dgot[others]):
+        raise AssertionError("random records in one block changed another")
+    print(f"phase 5: wire_decode hostile block: no fault, the other "
+          f"{len(others)} blocks exact; {_stats_text(stats)} {tag}")
     wire = (wire_err, _cuda_ms(torch, lambda: decode_blocks_wire(*timed), 5),
             _cuda_ms(torch, lambda: decode_blocks_wire_plain(*timed), 1,
                      False),
             _bound_ms(wire_need))
+    decode_blocks_wire(*timed)
+    stats = _resolve_stats(decode_blocks_wire, timed_name, 0)
     print(f"phase 5: {timed_name}: kernel {wire[1]:.3f} ms "
           f"({len(corpus) / wire[1] / 1e3:.1f} MB/s), plain {wire[2]:.1f} "
-          f"ms {tag}")
+          f"ms; {_stats_text(stats)} {tag}")
     return chain, wire
 
 
@@ -684,6 +733,8 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
 
     blocks, main = blocks_of(ref_frame, None)
     got = decode_blocks_pallas(main[0], main[1], B, main[2])
+    main_stats = _token_stats(decode_blocks_pallas, "token_decode, the "
+                              "64 MiB frame's blocks", 0)
     want, plain_ms = _timed(torch, lambda: decode_blocks_pallas_plain(
         main[0], main[1], B, main[2]))
     err = _compare(torch, f"token_decode {len(blocks)} x 64 KB (the 64 MiB "
@@ -697,25 +748,32 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
                              "does not give the corpus")
     _, dic = blocks_of(dict_frame, d)
     dgot = decode_blocks_pallas(dic[0], dic[1], B, dic[2])
+    print(f"phase 8: token_decode dictionary batch: "
+          f"{_token_stats(decode_blocks_pallas, 'dictionary batch', 0)} "
+          f"{tag}")
     err = max(err, _compare(torch, f"token_decode {dic[0].shape[0]} blocks "
                             "with a dictionary", dgot,
                             decode_blocks_pallas_plain(dic[0], dic[1], B,
                                                        dic[2]), tag, 8))
-    hostile = dic[0].clone()
-    h = min(5, hostile.shape[0] - 1)
-    nh = int(dic[1][h])
+    # hostile: the first 64 of the frame's rows, one of them random bytes
+    # (no history: its first match reaches before the row, so it takes
+    # the serial route)
+    hostile, hlens = main[0][:64].clone(), main[1][:64]
+    h = int(torch.nonzero(hlens)[0])
+    nh = int(hlens[h])
     hostile[h, :nh] = torch.from_numpy(rng.integers(
         0, 256, nh, dtype=np.uint8)).to(dev)
-    hgot = decode_blocks_pallas(hostile, dic[1], B, dic[2])
-    err = max(err, _compare(torch, f"token_decode, row {h} random bytes",
-                            hgot, decode_blocks_pallas_plain(
-                                hostile, dic[1], B, dic[2]), tag, 8))
+    hgot = decode_blocks_pallas(hostile, hlens, B)
+    hstats = _token_stats(decode_blocks_pallas, "hostile batch", 1)
+    err = max(err, _compare(torch, f"token_decode, row {h} of 64 random "
+                            "bytes", hgot, decode_blocks_pallas_plain(
+                                hostile, hlens, B), tag, 8))
     others = [i for i in range(hostile.shape[0]) if i != h]
-    if not (torch.equal(hgot[0][others], dgot[0][others])
-            and torch.equal(hgot[1][others], dgot[1][others])):
+    if not (torch.equal(hgot[0][others], got[0][others])
+            and torch.equal(hgot[1][others], got[1][others])):
         raise AssertionError(f"random bytes in row {h} changed another row")
     print(f"phase 8: token_decode hostile row: no fault, the other "
-          f"{len(others)} rows exact {tag}")
+          f"{len(others)} rows exact; {hstats} {tag}")
     ms = _cuda_ms(torch, lambda: decode_blocks_pallas(main[0], main[1], B,
                                                       main[2]), 5)
     # wire bytes and lengths in, decoded bytes and lengths out
@@ -726,7 +784,7 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
     print(f"phase 8: token_decode {len(blocks)} x 64 KB: kernel {ms:.3f} ms "
           f"({len(corpus) / ms / 1e3:.1f} MB/s of output), plain "
           f"{plain_ms:.1f} ms, bound {res['token_decode']['bound_ms']:.4f} "
-          f"ms {tag}")
+          f"ms; {main_stats} {tag}")
 
     # -- token_decode_linked ---------------------------------------------
     linked = np.concatenate([_json_payload(3 * B),

@@ -44,25 +44,67 @@ struct Seg {
   uint8_t* out;          // the whole output buffer
   int32_t* code;         // code[g - s0] for g in [s0, s1)
   int64_t s0, s1;
-  const uint8_t* seed;   // kWin bytes, or null for zeros
+  // chain c's kWin seed bytes at seed + c * seed_stride (stride 0: one
+  // seed shared by every chain), or null for zeros
+  const uint8_t* seed;
+  int64_t seed_stride;
 };
+
+// Chain c's seed window, or null for zeros.
+__device__ __forceinline__ const uint8_t* seed_of(const Seg& s, int64_t c) {
+  return s.seed != nullptr ? s.seed + c * s.seed_stride : nullptr;
+}
 
 __device__ __forceinline__ bool inside(const Seg& s, int64_t g) {
   return g >= s.s0 && g < s.s1;
 }
 
 // Output byte g (inside the segment) of the chain whose output starts at
-// o0 takes the byte at global position gs < g; gs < o0 names the seed's
-// byte kWin - (o0 - gs).
+// o0 and whose seed window is *seed* (seed_of) takes the byte at global
+// position gs < g; gs < o0 names the seed's byte kWin - (o0 - gs).
 __device__ __forceinline__ void take(const Seg& s, int64_t g, int64_t o0,
-                                     int64_t gs) {
+                                     int64_t gs, const uint8_t* seed) {
   if (gs < o0) {
-    s.out[g] = s.seed != nullptr ? __ldg(s.seed + (gs - o0 + kWin)) : 0;
+    s.out[g] = seed != nullptr ? __ldg(seed + (gs - o0 + kWin)) : 0;
   } else if (gs < s.s0) {
     s.out[g] = s.out[gs];
   } else {
     s.code[g - s.s0] = static_cast<int32_t>(gs - s.s0);
   }
+}
+
+constexpr int kScanThreads = 1024;   // the CTA of cta_scan
+
+// Inclusive scan over the CTA (kScanThreads threads) of one value >= 0 per
+// thread, by sum or by max; *total gets the whole CTA's result.
+template <bool kMax>
+__device__ int64_t cta_scan(int64_t v, int64_t* total) {
+  __shared__ int64_t part[kScanThreads / 32];
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int64_t u = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v = kMax ? (v > u ? v : u) : v + u;
+  }
+  if (lane == 31) part[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    int64_t x = part[lane];
+    for (int d = 1; d < 32; d <<= 1) {
+      const int64_t u = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x = kMax ? (x > u ? x : u) : x + u;
+    }
+    part[lane] = x;
+  }
+  __syncthreads();
+  if (w > 0) {
+    const int64_t u = part[w - 1];
+    v = kMax ? (v > u ? v : u) : v + u;
+  }
+  *total = part[kScanThreads / 32 - 1];
+  __syncthreads();   // part is written again by the next call
+  return v;
 }
 
 inline unsigned blocks_for(int64_t n) {

@@ -30,17 +30,45 @@
 // output are zeros.
 //
 // interpret() hands each parsed sequence to a sink: WriteSink copies it
-// into the output at once (lz4t_token_decode), SpanSink records it as a
-// span and writes nothing (lz4t_token_decode_linked).
+// into the output at once (lz4t_token_decode's serial route), SpanSink
+// records it as a span and writes nothing (lz4t_token_decode_linked).
 //
-// lz4t_token_decode: one CTA of one warp per block. Every lane parses the
-// same token stream in lockstep (broadcast loads of the compressed bytes);
-// the warp copies a literal run, then a match, 32 bytes a step. A match
-// reads only [o - offset, o), which is complete before it starts, so
-// out[o + i] = io[o - offset + i % offset] is the exact LZ4 overlap copy
-// for every offset; __syncwarp() orders one sequence's writes before the
-// next one's reads. Bound by the dependent latency of each sequence;
-// blocks run in parallel.
+// lz4t_token_decode does not walk a block one sequence after another. The
+// first port did (one warp a block, lane 0's scalar parse, then each
+// sequence's copies, a round trip through L2 per sequence): the block
+// with the most sequences (8948 of a 64 KB block of the corpus) set the
+// time, ~0.5 us a sequence. It runs five stages, one CTA per block each:
+//   1. token_split_kernel: lane w parses segment w of the row
+//      speculatively (from byte w * ceil(n / 32), without the cursor's
+//      clamps: the token positions do not depend on the cursor while its
+//      o_limit clamp does not bind), listing its token positions.
+//   2. token_stitch_kernel: in segment order, the true cursor x entering
+//      segment w is exact from there on if it is in w's list; else the
+//      warp walks on from x until it is, or x leaves the segment.
+//   3. token_heads_kernel, 1024 threads: every sequence's header, its
+//      cursor by a CTA scan, the conformance check (no literal or match
+//      clamp binds and every match's offset is in [1, om]: then the
+//      parallel result is interpret()'s), and every literal byte.
+//   4. token_matches_kernel, one warp: the matches in groups of 32
+//      sequences, group by group: those whose source ends at or before
+//      the group's first output byte read only final bytes and are copied
+//      in parallel; the group's other matches in order, each with
+//      out[om + i] = io[om - offset + i % offset], the exact LZ4 overlap
+//      copy (its reads lie in [om - offset, om), final before it starts).
+//   5. token_serial_kernel: a block that failed the check (only hostile
+//      or truncated rows do) decodes with interpret() and WriteSink, the
+//      first port's walk; every other CTA returns at once.
+// What bounds it: stage 4's chain of groups, one after another, on the
+// blocks with the most sequences (the busiest of the 64 MiB frame's 1024
+// blocks holds 8948, ~280 groups), and the instruction latency of each
+// group's steps on an SM that runs a few warps; then the stitch's walk on
+// rows whose segments do not meet the true walk (up to 997 sequences a
+// block there). On the 64 MiB frame's blocks (NVIDIA H100 80GB HBM3,
+// 700 W; chip_decode_steps.py): 2.04-2.07 ms (the first port's walk:
+// 4.72-4.77), of which matches 1.47, stitch 0.30, split parse 0.16,
+// heads 0.10. Neither a ring of recent output in shared memory (stage 4
+// read its own bytes from L2) nor copying late matches in rounds was
+// faster (PERF.md).
 //
 // lz4t_token_decode_linked does not walk a chain in order: a linked frame
 // is one chain, and one warp walking its 2M sequences left 131 of the 132
@@ -82,7 +110,10 @@
 // 0.21, fix 0.15, init 0.11, row slots 0.004; scratch 370 MB, 98 MB of
 // it span slots. ptxas (sm_90a), no spills: token_rows_kernel 32
 // registers (512 B shared), token_parse_kernel 38, token_fix_kernel 44,
-// token_spans_kernel 40, token_long_kernel 40, token_decode_kernel 62.
+// token_spans_kernel 40, token_long_kernel 40; lz4t_token_decode's
+// token_split_kernel 19, token_stitch_kernel 26, token_heads_kernel 32
+// (12548 B shared), token_matches_kernel 47 (384 B shared),
+// token_serial_kernel 52.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,20 +271,383 @@ __device__ int64_t interpret(const Comp& c, Sink& sink, int64_t o_start,
   return o;
 }
 
+// ---------------------------------------------------------------------------
+// lz4t_token_decode: independent blocks, one warp a block
+// ---------------------------------------------------------------------------
+
+constexpr int kSegs = 32;              // segments a row: one lane each
+constexpr uint32_t kSat = 1u << 25;    // lengths saturate here in the scan
+constexpr int kUnroll = 8;             // match bytes a lane copies at once
+constexpr uint32_t kNone = 0xFFFFFFFFu;
+
+// A compressed row in 32-bit positions (row_w < 2**23: the wrapper
+// checks); bytes at and past n read as zeros.
+struct Row {
+  const uint8_t* p;
+  uint32_t n;
+  __device__ __forceinline__ uint32_t at(uint32_t i) const {
+    return i < n ? __ldg(p + i) : 0u;
+  }
+  // A 0xFF-run length extension starting at *q; the sum of its bytes
+  // stays below 2**32 (at most 255 a byte of the row and one past it).
+  __device__ __forceinline__ uint32_t ext(uint32_t* q) const {
+    uint32_t sum = 0, v;
+    do {
+      v = at(*q);
+      *q += 1;
+      sum += v;
+    } while (v == 255);
+    return sum;
+  }
+};
+
+// The sequence whose token is at p, parsed without the output cursor's
+// clamps: interpret()'s token positions do not depend on the cursor while
+// its o_limit clamp does not bind. lit keeps the clamp to n + 128 - p,
+// which does not depend on it either.
+struct Head {
+  uint32_t next;     // the next token's position (>= n: the row ends)
+  uint32_t lit, lit_at, offset, ml;
+  bool valid;        // a match follows the literals
+};
+
+__device__ __forceinline__ Head head_at(const Row& c, uint32_t p) {
+  Head h;
+  const uint32_t token = c.at(p);
+  p += 1;
+  uint32_t lit = token >> 4;
+  if (lit == 15) lit += c.ext(&p);
+  h.lit = min(lit, c.n + static_cast<uint32_t>(kHalfSlack) - p);
+  h.lit_at = p;
+  p += h.lit;
+  h.valid = p < c.n;
+  h.offset = c.at(p) | (c.at(p + 1) << 8);
+  uint32_t p2 = p + 2;
+  h.ml = token & 15;
+  if (h.valid && h.ml == 15) h.ml += c.ext(&p2);
+  h.next = h.valid ? p2 : p;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t warp_incl_sum(uint32_t v, int lane) {
+  for (int d = 1; d < kLanes; d <<= 1) {
+    const uint32_t u = __shfl_up_sync(0xFFFFFFFFu, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// Byte x of the io space [history | output row], x below the group's
+// bytes or inside the final ones (written by this warp: no __ldg).
+__device__ __forceinline__ uint8_t io_read(const uint8_t* hist, uint32_t base,
+                                           const uint8_t* out, uint32_t x) {
+  if (x >= base) return out[x - base];
+  return hist != nullptr ? __ldg(hist + x) : 0;
+}
+
+// The inputs, outputs and scratch of lz4t_token_decode's four stages,
+// one warp a block each. meta u32[nb, kMeta] carries a block's state from
+// stage to stage: per segment its list's length and its walk's exit, then
+// the sequences, the sequences the stitch walked again, the serial flag.
+constexpr int kMeta = 2 * kSegs + 3;
+constexpr int kNSeq = 2 * kSegs, kRedo = kNSeq + 1, kSerial = kNSeq + 2;
+
+struct Blocks {
+  const uint8_t* comp;
+  int64_t row_w;
+  const int64_t* lens;
+  const uint8_t* hist;
+  int64_t block_size;
+  uint8_t* out;
+  int64_t* out_lens;
+  uint32_t* lists;     // [nb, kSegs, list_w] speculative token positions
+  int64_t list_w;
+  uint32_t* starts;    // [nb, starts_w] the true token positions, in order
+  int64_t starts_w;
+  uint32_t* meta;      // [nb, kMeta]
+  int32_t* stats;      // [nb, 4] or null
+
+  __device__ __forceinline__ Row row(int64_t b) const {
+    return Row{comp + b * row_w,
+               static_cast<uint32_t>(clamp64(lens[b], 0, row_w))};
+  }
+  __device__ __forceinline__ uint32_t base() const {
+    return hist != nullptr ? static_cast<uint32_t>(kWin) : 0u;
+  }
+  __device__ __forceinline__ uint32_t* list(int64_t b, int w) const {
+    return lists + (b * kSegs + w) * list_w;
+  }
+};
+
+// Stage 1, the split parse: lane w walks segment w of the row (S =
+// ceil(n / 32) bytes from w * S) without the cursor's clamps, recording
+// every token position it visits until one is at or past the segment's
+// end. The positions are 3 bytes apart at least (a token, then two offset
+// bytes, unless the row ends), so a list holds at most ceil(S / 3) <=
+// list_w of them; lane 0's is exact.
 __global__ void __launch_bounds__(kLanes)
-token_decode_kernel(const uint8_t* __restrict__ comp, int64_t row_w,
-                    const int64_t* __restrict__ lens,
-                    const uint8_t* __restrict__ hist, int64_t block_size,
-                    uint8_t* out, int64_t* __restrict__ out_lens) {
+token_split_kernel(Blocks bk) {
   const int64_t b = blockIdx.x;
   const int lane = threadIdx.x;
-  const Comp c{comp + b * row_w, clamp64(lens[b], 0, row_w)};
-  WriteSink sink{{hist, hist != nullptr ? kWin : 0, out + b * block_size}};
-  const int64_t o = interpret(c, sink, sink.io.base,
-                              sink.io.base + block_size, lane);
-  const int64_t n = o - sink.io.base;
-  zero_fill(out + b * block_size + n, block_size - n, lane);
-  if (lane == 0) out_lens[b] = n;
+  const Row c = bk.row(b);
+  const uint32_t S = (c.n + kSegs - 1) / kSegs;
+  uint32_t* mine = bk.list(b, lane);
+  uint32_t p = lane * S, k = 0;
+  const uint32_t hi = p + S;
+  while (p < c.n && p < hi) {
+    mine[k++] = p;
+    p = head_at(c, p).next;
+  }
+  uint32_t* meta = bk.meta + b * kMeta;
+  meta[lane] = k;
+  meta[kSegs + lane] = p;
+}
+
+// Stage 2, the stitch, in segment order: the true cursor x entering
+// segment w is exact from there on if it is in w's list (the warp looks
+// for it 32 entries at a time); else the warp walks on from x, appending
+// to starts, until x is in the list or leaves the segment. Never wrong,
+// only slower on rows whose walks do not meet.
+__global__ void __launch_bounds__(kLanes)
+token_stitch_kernel(Blocks bk) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int64_t b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const Row c = bk.row(b);
+  const uint32_t S = (c.n + kSegs - 1) / kSegs;
+  uint32_t* meta = bk.meta + b * kMeta;
+  uint32_t* fin = bk.starts + b * bk.starts_w;
+  uint32_t x = meta[kSegs], total = 0, redo = 0;
+  for (int w = 0; w < kSegs; ++w) {
+    const uint32_t* lst = bk.list(b, w);
+    const uint32_t n_w = meta[w];
+    uint32_t j = 0;
+    if (w > 0) {
+      const uint32_t hi = (w + 1) * S;
+      if (x >= c.n) break;
+      if (x >= hi) continue;           // a literal run passed the segment
+      for (;;) {
+        bool found = false;
+        for (;;) {                     // the first entry >= x, from j on
+          const uint32_t v = j + lane < n_w ? lst[j + lane] : kFull;
+          const unsigned eq = __ballot_sync(kFull, v == x);
+          const unsigned lt = __ballot_sync(kFull, v < x);
+          if (eq) {
+            j += __ffs(eq) - 1;
+            found = true;
+            break;
+          }
+          j += __popc(lt);
+          if (lt != kFull) break;
+        }
+        if (found) break;
+        if (lane == 0) fin[total] = x;
+        ++total;
+        ++redo;
+        x = head_at(c, x).next;
+        if (x >= hi || x >= c.n) {
+          j = n_w;                     // the list is dropped
+          break;
+        }
+      }
+      if (j < n_w) x = meta[kSegs + w];
+    } else {
+      x = meta[kSegs];
+    }
+    for (uint32_t i = lane; j + i < n_w; i += kLanes)
+      fin[total + i] = lst[j + i];
+    total += n_w - j;
+  }
+  if (lane == 0) {
+    meta[kNSeq] = total;
+    meta[kRedo] = redo;
+    meta[kSerial] = 0;
+  }
+}
+
+// Stage 3, every sequence of a block at once, 1024 a pass: its header
+// (interpret()'s, without the cursor's clamps), its cursor by a CTA scan
+// of lit + mlen, the conformance check (no clamp of interpret() binds, so
+// its cursor, and the token positions after each sequence, are the ones
+// used here; a block that fails it is left to stage 5), then the
+// literals, which read only the row, as one run of bytes over the CTA.
+// starts[k] becomes sequence k's match position om, and mlens and offs
+// (the dropped lists' space) take its match length and offset.
+constexpr int kHeadThreads = resolve::kScanThreads;
+
+__global__ void __launch_bounds__(kHeadThreads)
+token_heads_kernel(Blocks bk, uint32_t* __restrict__ mlens) {
+  __shared__ uint32_t s_lend[kHeadThreads], s_o[kHeadThreads],
+      s_at[kHeadThreads];
+  __shared__ int bad;
+  const int64_t b = blockIdx.x;
+  const int t = threadIdx.x;
+  const Row c = bk.row(b);
+  uint8_t* ob = bk.out + b * bk.block_size;
+  const int64_t base = bk.base();
+  const int64_t o_limit = base + bk.block_size;
+  uint32_t* meta = bk.meta + b * kMeta;
+  uint32_t* fin = bk.starts + b * bk.starts_w;
+  uint32_t* ml = mlens + b * bk.starts_w;
+  uint32_t* offs = bk.list(b, 0);
+  const uint32_t n_seq = meta[kNSeq];
+  if (t == 0) bad = 0;
+  int64_t o = base;
+  for (uint32_t k0 = 0; k0 < n_seq; k0 += kHeadThreads) {
+    const uint32_t k = k0 + t;
+    const bool live = k < n_seq;
+    Head h{};
+    if (live) h = head_at(c, fin[k]);
+    const uint32_t mlen = live && h.valid ? h.ml + 4 : 0;
+    const uint32_t lit = live ? h.lit : 0;
+    int64_t tot, ltot;
+    const int64_t span = static_cast<int64_t>(lit) + min(mlen, kSat);
+    const int64_t oc = o + resolve::cta_scan<false>(span, &tot) - span;
+    const int64_t om = oc + lit;
+    if (live && !(om <= o_limit &&
+                  (mlen == 0 || (h.offset >= 1 && h.offset <= om &&
+                                 mlen <= o_limit - om))))
+      bad = 1;
+    const uint32_t lend =
+        static_cast<uint32_t>(resolve::cta_scan<false>(lit, &ltot));
+    if (bad) break;    // uniform: cta_scan ends at a barrier
+    if (live) {
+      fin[k] = static_cast<uint32_t>(om);
+      ml[k] = mlen;
+      offs[k] = h.offset;
+    }
+    s_lend[t] = lend;
+    s_o[t] = static_cast<uint32_t>(oc - base);
+    s_at[t] = h.lit_at;
+    __syncthreads();
+    for (uint32_t j = t; j < ltot; j += kHeadThreads) {
+      uint32_t lo = 0, hi = kHeadThreads - 1;   // the first lend > j
+      while (lo < hi) {
+        const uint32_t mid = (lo + hi) >> 1;
+        if (s_lend[mid] <= j)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      const uint32_t i = j - (lo > 0 ? s_lend[lo - 1] : 0);
+      ob[s_o[lo] + i] = static_cast<uint8_t>(c.at(s_at[lo] + i));
+    }
+    __syncthreads();   // s_* are written again by the next pass
+    o += tot;
+  }
+  if (bad) {
+    if (t == 0) meta[kSerial] = 1;
+    return;
+  }
+  const int64_t n = o - base;
+  for (int64_t i = n + t; i < bk.block_size; i += kHeadThreads) ob[i] = 0;
+  if (t == 0) bk.out_lens[b] = n;
+}
+
+// Stage 4, the matches, in groups of 32 sequences, one a lane, group by
+// group: the matches whose source ends at or before the group's first
+// output byte g0 read only final bytes (every literal, and the groups
+// before) and are copied in parallel, as one run of bytes over the warp;
+// then the group's other matches in order.
+__global__ void __launch_bounds__(kLanes)
+token_matches_kernel(Blocks bk, const uint32_t* __restrict__ mlens) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  __shared__ uint32_t g_om[kLanes], g_off[kLanes], g_mend[kLanes];
+  const int64_t b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const uint8_t* hist = bk.hist;
+  uint8_t* ob = bk.out + b * bk.block_size;
+  const uint32_t base = bk.base();
+  const uint32_t* meta = bk.meta + b * kMeta;
+  const uint32_t* fin = bk.starts + b * bk.starts_w;
+  const uint32_t* ml = mlens + b * bk.starts_w;
+  const uint32_t* offs = bk.list(b, 0);
+  const uint32_t n_seq = meta[kNSeq];
+  const bool serial = meta[kSerial] != 0;
+  uint32_t in_order = 0;
+  for (uint32_t k0 = 0; k0 < n_seq && !serial; k0 += kLanes) {
+    const uint32_t k = k0 + lane;
+    const bool live = k < n_seq;
+    const uint32_t om = live ? fin[k] : 0;
+    const uint32_t mlen = live ? ml[k] : 0;
+    const uint32_t off = live ? offs[k] : 0;
+    const bool valid = mlen > 0;
+    // the group's first output byte: the end of the sequence before it
+    const uint32_t g0 = k0 == 0 ? base : fin[k0 - 1] + ml[k0 - 1];
+    const bool early = valid && om - off + min(mlen, off) <= g0;
+    const uint32_t mend = warp_incl_sum(early ? mlen : 0, lane);
+    g_om[lane] = om;
+    g_off[lane] = off;
+    g_mend[lane] = mend;
+    __syncwarp();
+    // kUnroll bytes a lane at a time: all their loads, then all their
+    // stores (q: the sequence that owns byte j)
+    const uint32_t n_em = __shfl_sync(kFull, mend, kLanes - 1);
+    for (uint32_t j0 = lane, q = 0; j0 < n_em; j0 += kLanes * kUnroll) {
+      uint32_t to[kUnroll];
+      uint8_t v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const uint32_t j = j0 + u * kLanes;
+        to[u] = kNone;
+        if (j < n_em) {
+          while (g_mend[q] <= j) ++q;
+          const uint32_t i = j - (q > 0 ? g_mend[q - 1] : 0);
+          const uint32_t d = g_off[q];
+          to[u] = g_om[q] - base + i;
+          v[u] = io_read(hist, base, ob, g_om[q] - d + (i < d ? i : i % d));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (to[u] != kNone) ob[to[u]] = v[u];
+    }
+    __syncwarp();
+    // the other matches, in order: byte i takes from + i % offset, which
+    // lies in [from, om) and is final, so one match needs no barrier
+    const unsigned late = __ballot_sync(kFull, valid && !early);
+    in_order += __popc(late);
+    for (unsigned m = late; m; m &= m - 1) {
+      const int s = __ffs(m) - 1;
+      const uint32_t s_om = __shfl_sync(kFull, om, s);
+      const uint32_t d = __shfl_sync(kFull, off, s);
+      const uint32_t n = __shfl_sync(kFull, mlen, s);
+      const uint32_t from = s_om - d;
+      const uint32_t r32 = kLanes % d;
+      uint32_t t = lane % d;            // i % d for i = lane
+      for (uint32_t i = lane; i < n; i += kLanes) {
+        ob[s_om - base + i] = io_read(hist, base, ob, from + t);
+        t += r32;
+        if (t >= d) t -= d;
+      }
+      __syncwarp();
+    }
+  }
+  if (lane == 0 && bk.stats != nullptr) {
+    int32_t* st = bk.stats + 4 * b;
+    st[0] = static_cast<int32_t>(n_seq);
+    st[1] = static_cast<int32_t>(meta[kRedo]);
+    st[2] = static_cast<int32_t>(in_order);
+    st[3] = serial;
+  }
+}
+
+// Stage 5, the serial route of the blocks stage 3 refused (others return
+// at once): interpret() over the whole row, as the first port ran every
+// block. It rewrites every byte it decodes.
+__global__ void __launch_bounds__(kLanes)
+token_serial_kernel(Blocks bk) {
+  const int64_t b = blockIdx.x;
+  const int lane = threadIdx.x;
+  if (!bk.meta[b * kMeta + kSerial]) return;
+  const Row c = bk.row(b);
+  uint8_t* ob = bk.out + b * bk.block_size;
+  WriteSink sink{{bk.hist, bk.base(), ob}};
+  const int64_t n =
+      interpret(Comp{c.p, c.n}, sink, bk.base(), bk.base() + bk.block_size,
+                lane) - bk.base();
+  zero_fill(ob + n, bk.block_size - n, lane);
+  if (lane == 0) bk.out_lens[b] = n;
 }
 
 // The linked entry's inputs (see lz4t_token_decode_linked).
@@ -321,36 +715,8 @@ Scratch scratch_of(void* rows, int64_t n_rows, int64_t n_chains,
   return sc;
 }
 
-constexpr int kScanThreads = 1024;   // token_rows_kernel's one CTA
-
-// Inclusive scan over the CTA (kScanThreads threads) of one value >= 0 per
-// thread, by sum or by max; *total gets the whole CTA's result.
-template <bool kMax>
-__device__ int64_t cta_scan(int64_t v, int64_t* total) {
-  __shared__ int64_t part[kScanThreads / kLanes];
-  constexpr unsigned kFull = 0xFFFFFFFFu;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  for (int d = 1; d < kLanes; d <<= 1) {
-    const int64_t u = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v = kMax ? max64(v, u) : v + u;
-  }
-  if (lane == kLanes - 1) part[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    int64_t x = part[lane];
-    for (int d = 1; d < kLanes; d <<= 1) {
-      const int64_t u = __shfl_up_sync(kFull, x, d);
-      if (lane >= d) x = kMax ? max64(x, u) : x + u;
-    }
-    part[lane] = x;
-  }
-  __syncthreads();
-  if (w > 0) v = kMax ? max64(v, part[w - 1]) : v + part[w - 1];
-  *total = part[kScanThreads / kLanes - 1];
-  __syncthreads();   // part is written again by the next call
-  return v;
-}
+using resolve::cta_scan;
+using resolve::kScanThreads;   // token_rows_kernel's one CTA
 
 // Stage A, before the parse: every row's span slots, 1 for a stored row,
 // len / 3 + 1 for a compressed one. interpret() ends when p reaches len,
@@ -480,7 +846,7 @@ __device__ __forceinline__ void span_bytes(const uint8_t* comp,
       seg.out[g] = wi < s.wend ? __ldg(comp + wi) : 0;
     } else {
       const uint32_t m = static_cast<uint32_t>(i - s.lit);
-      resolve::take(seg, g, s.o0, s.from + m % period);
+      resolve::take(seg, g, s.o0, s.from + m % period, seg.seed);
     }
   }
 }
@@ -586,21 +952,37 @@ Chains chains_of(const void* comp, int64_t comp_total, const void* comp_off,
 }  // namespace
 
 // Independent blocks: comp u8[nb, row_w] (row b's stream is its first
-// lens[b] bytes, the rest read as zeros); lens i64[nb]; hist u8[65536]
-// right-aligned history shared by every block, or null for none; out
-// u8[nb, block_size]; out_lens i64[nb]. One CTA per block on *stream*;
-// does not synchronise; returns cudaGetLastError().
+// lens[b] bytes, the rest read as zeros), row_w < 2**23; lens i64[nb];
+// hist u8[65536] right-aligned history shared by every block, or null for
+// none; out u8[nb, block_size], block_size <= 2**24; out_lens i64[nb].
+// Scratch: lists u32[nb, 32, list_w] with list_w >= ceil(ceil(row_w / 32)
+// / 3), starts and mlens u32[nb, starts_w] with starts_w >= ceil(row_w /
+// 3), meta u32[nb, 67]; stats i32[nb, 4] (sequences, sequences the stitch
+// walked again, matches whose source reaches into their group, serial
+// route) or null. Queues the five stages, one CTA per block each, on
+// *stream*; does not synchronise; returns cudaGetLastError().
 extern "C" int lz4t_token_decode(const void* comp, int64_t nb, int64_t row_w,
                                  const void* lens, const void* hist,
                                  int64_t block_size, void* out,
-                                 void* out_lens, void* stream) {
+                                 void* out_lens, void* lists, int64_t list_w,
+                                 void* starts, int64_t starts_w, void* mlens,
+                                 void* meta, void* stats, void* stream) {
   if (nb <= 0) return 0;
-  token_decode_kernel<<<static_cast<unsigned>(nb), kLanes, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(comp), row_w,
-      static_cast<const int64_t*>(lens), static_cast<const uint8_t*>(hist),
-      block_size, static_cast<uint8_t*>(out),
-      static_cast<int64_t*>(out_lens));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Blocks bk{static_cast<const uint8_t*>(comp), row_w,
+                  static_cast<const int64_t*>(lens),
+                  static_cast<const uint8_t*>(hist), block_size,
+                  static_cast<uint8_t*>(out), static_cast<int64_t*>(out_lens),
+                  static_cast<uint32_t*>(lists), list_w,
+                  static_cast<uint32_t*>(starts), starts_w,
+                  static_cast<uint32_t*>(meta), static_cast<int32_t*>(stats)};
+  const unsigned grid = static_cast<unsigned>(nb);
+  uint32_t* ml = static_cast<uint32_t*>(mlens);
+  token_split_kernel<<<grid, kLanes, 0, st>>>(bk);
+  token_stitch_kernel<<<grid, kLanes, 0, st>>>(bk);
+  token_heads_kernel<<<grid, kHeadThreads, 0, st>>>(bk, ml);
+  token_matches_kernel<<<grid, kLanes, 0, st>>>(bk, ml);
+  token_serial_kernel<<<grid, kLanes, 0, st>>>(bk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -665,7 +1047,7 @@ extern "C" int lz4t_token_decode_linked(
   for (int64_t s0 = 0; s0 < out_total;
        s0 += seg_len, rflags += rounds, ++nl) {
     const int64_t n = min64(seg_len, out_total - s0);
-    const resolve::Seg seg{o, cd, s0, s0 + n, sd};
+    const resolve::Seg seg{o, cd, s0, s0 + n, sd, 0};
     resolve::init_kernel<<<resolve::blocks_for(n), resolve::kThreads, 0,
                            st>>>(o, cd, s0, n);
     if (n_slots > 0) {

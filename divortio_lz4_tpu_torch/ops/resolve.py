@@ -103,9 +103,12 @@ def gather(seg: torch.Tensor, code: torch.Tensor) -> None:
 
 def resolve_segments(out_total: int, buf: torch.Tensor,
                      seed: Optional[torch.Tensor], lits: Lits,
-                     matches: Matches, segment: int = SEGMENT):
-    """Stages B-D over the whole output, segment by segment. Returns (out
-    u8[out_total], rounds per segment); bytes no span covers are zeros."""
+                     matches: Matches, segment: int = SEGMENT,
+                     seed_row: Optional[torch.Tensor] = None):
+    """Stages B-D over the whole output, segment by segment. *seed* is
+    u8[W] (every chain's), None (zeros) or u8[nc, W] with *seed_row*, the
+    row of each match span's chain. Returns (out u8[out_total], rounds per
+    segment); bytes no span covers are zeros."""
     dev = buf.device
     out = torch.zeros(out_total, dtype=torch.uint8, device=dev)
     k, j = _expand(lits.n)
@@ -119,6 +122,7 @@ def resolve_segments(out_total: int, buf: torch.Tensor,
     mat_g = matches.at[k] + j
     mat_o0 = matches.o0[k]
     mat_gs = matches.src[k] + j % matches.period[k]
+    mat_row = seed_row[k] if seed_row is not None else None
     rounds = []
     for s0 in range(0, out_total, segment):
         s1 = min(s0 + segment, out_total)
@@ -128,8 +132,11 @@ def resolve_segments(out_total: int, buf: torch.Tensor,
         m = (mat_g >= s0) & (mat_g < s1)
         g, gs, o0 = mat_g[m], mat_gs[m], mat_o0[m]
         in_seed = gs < o0
-        if seed is not None:
-            out[g[in_seed]] = seed[gs[in_seed] - o0[in_seed] + W]
+        at = gs[in_seed] - o0[in_seed] + W
+        if mat_row is not None:
+            out[g[in_seed]] = seed[mat_row[m][in_seed], at]
+        elif seed is not None:
+            out[g[in_seed]] = seed[at]
         early = ~in_seed & (gs < s0)    # an earlier segment: final
         out[g[early]] = out[gs[early]]
         rest = ~in_seed & ~early

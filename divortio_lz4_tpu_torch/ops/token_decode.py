@@ -8,7 +8,12 @@ interpreter, ``_interpret_block`` (``:116``); so do both entry points of
 - ``decode_blocks_pallas`` is TPU kernel ``_make_kernel`` (``:233``, run by
   ``decode_blocks_pallas`` at ``:312``): independent blocks, one row each,
   after an optional shared right-aligned 64 KB history (the TPU took a
-  per-row copy of it).
+  per-row copy of it). The kernel does not walk a block one sequence
+  after another: it parses each row in 32 segments at once and stitches
+  them, decodes every header and literal of a block with a whole CTA,
+  copies the matches 32 sequences a group, and sends a block whose
+  clamps would bind (only hostile rows) to the serial interpreter
+  (``decode_blocks_pallas_segmented_plain`` renders it step by step).
 - ``decode_token_chains`` is TPU kernel ``_make_linked_kernel`` (``:410``,
   run by ``decode_linked_chunk_pallas`` at ``:474``): chains of dependent
   rows, each chain decoded into [64 KB window | out0 | out1 ...], stored
@@ -30,6 +35,7 @@ TPU leaves wild writes.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 from typing import NamedTuple, Optional
@@ -45,6 +51,9 @@ W = WINDOW_SIZE
 HALF_SLACK = 128      # SLACK // 2: literal reads may run this far past a row
 CHECK_EVERY = 32      # plain parse steps between checks for a live row
 LONG_SPAN = 1024      # kLong of csrc/token_decode.cu
+SEGMENTS = 32         # kSegs of csrc/token_decode.cu: one lane a segment
+GROUP = 32            # sequences copied together, one lane each
+META = 2 * SEGMENTS + 3   # kMeta: a block's state between the stages
 
 
 class TokenChains(NamedTuple):
@@ -73,7 +82,8 @@ class TokenChains(NamedTuple):
 def _kernels():
     lib = load_library("token_decode")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.lz4t_token_decode.argtypes = [p, i64, i64, p, p, i64, p, p, p]
+    lib.lz4t_token_decode.argtypes = [p, i64, i64, p, p, i64, p, p, p,
+                                      i64, p, i64, p, p, p, p]
     lib.lz4t_token_decode.restype = ctypes.c_int
     chains = [p, i64, p, p, i64, p, i64, p, i64]
     lib.lz4t_token_slots.argtypes = chains + [p, p]
@@ -112,24 +122,46 @@ def decode_blocks_pallas(comp: torch.Tensor, lens: torch.Tensor,
     u8[65536] right-aligned history of every block, or None. Returns (out
     u8[nb, block_size], out_lens i64[nb]) on the inputs' device, zeros past
     each out_len. On CUDA the kernel is queued on the current stream and
-    nothing synchronises; ``launches`` counts those launches."""
+    nothing synchronises; ``launches`` counts those launches and
+    ``last_stats`` (i32[nb, 4] on the device) holds, per block, the
+    sequences, those the stitch walked again, the matches copied in order
+    and the serial-route flag (decode_blocks_pallas_segmented_plain's
+    stats). Scratch: the parse's token positions, u32[nb, 32, M / 96 + 2]
+    and 2 x u32[nb, M / 3 + 2] (positions, then matches), and 268 B a
+    block of state between the kernel's five stages. The kernel takes
+    M < 2**23 and block_size <= 2**24."""
     _check_blocks(comp, lens, block_size, hist)
     if comp.device.type == "cpu":
         return decode_blocks_pallas_plain(comp, lens, block_size, hist)
     if comp.device.type != "cuda":
         raise ValueError(f"no token decode for device {comp.device}")
-    nb = comp.shape[0]
-    out = torch.empty((nb, block_size), dtype=torch.uint8,
-                      device=comp.device)
-    out_lens = torch.empty(nb, dtype=torch.int64, device=comp.device)
+    nb, M = comp.shape
+    if M >= 1 << 23 or block_size > 1 << 24:
+        raise ValueError("the CUDA token decode takes rows < 2**23 bytes "
+                         "wide and block_size <= 2**24")
+    dev = comp.device
+    out = torch.empty((nb, block_size), dtype=torch.uint8, device=dev)
+    out_lens = torch.empty(nb, dtype=torch.int64, device=dev)
+    stats = torch.zeros((nb, 4), dtype=torch.int32, device=dev)
+    decode_blocks_pallas.last_stats = stats
     if nb == 0:
         return out, out_lens
+    # a segment of S bytes holds at most ceil(S / 3) token positions
+    list_w = -(-(-(-M // SEGMENTS)) // 3) + 1
+    starts_w = -(-M // 3) + 1
+    lists = torch.empty(nb * SEGMENTS * list_w, dtype=torch.int32,
+                        device=dev)
+    starts = torch.empty(nb * starts_w, dtype=torch.int32, device=dev)
+    mlens = torch.empty(nb * starts_w, dtype=torch.int32, device=dev)
+    meta = torch.empty(nb * META, dtype=torch.int32, device=dev)
     fn = _kernels().lz4t_token_decode
-    with torch.cuda.device(comp.device):
-        stream = torch.cuda.current_stream(comp.device).cuda_stream
-        rc = fn(comp.data_ptr(), nb, comp.shape[1], lens.data_ptr(),
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(comp.data_ptr(), nb, M, lens.data_ptr(),
                 None if hist is None else hist.data_ptr(), block_size,
-                out.data_ptr(), out_lens.data_ptr(), stream)
+                out.data_ptr(), out_lens.data_ptr(), lists.data_ptr(),
+                list_w, starts.data_ptr(), starts_w, mlens.data_ptr(),
+                meta.data_ptr(), stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"token_decode kernel launch failed: "
                            f"cudaError {rc}")
@@ -138,6 +170,7 @@ def decode_blocks_pallas(comp: torch.Tensor, lens: torch.Tensor,
 
 
 decode_blocks_pallas.launches = 0
+decode_blocks_pallas.last_stats = None
 
 
 def _check_chains(batch: TokenChains):
@@ -399,6 +432,187 @@ def decode_blocks_pallas_plain(comp: torch.Tensor, lens: torch.Tensor,
     out = io[:-1].view(nb, row_w)[:, base:]
     keep = torch.arange(block_size, device=dev)[None, :] < out_lens[:, None]
     return torch.where(keep, out, 0).contiguous(), out_lens
+
+
+# ---------------------------------------------------------------------------
+# The independent-block kernel's design, rendered step by step
+# ---------------------------------------------------------------------------
+
+
+
+class _Row:
+    """One compressed row as the interpreter reads it: bytes at and past
+    n are zeros."""
+
+    def __init__(self, data: bytes, n: int):
+        self.b, self.n = data, n
+
+    def at(self, i: int) -> int:
+        return self.b[i] if i < self.n else 0
+
+    def ext(self, p: int):
+        s = 0
+        while True:
+            v = self.at(p)
+            p += 1
+            s += v
+            if v != 255:
+                return s, p
+
+    def head(self, p: int):
+        """The sequence whose token is at p, without the cursor's clamps
+        (its positions do not depend on the output cursor): (next token
+        position, lit, lit_at, valid, offset, ml). lit is clamped to the
+        row's end + HALF_SLACK as the interpreter clamps it."""
+        token = self.at(p)
+        p += 1
+        lit = token >> 4
+        if lit == 15:
+            e, p = self.ext(p)
+            lit += e
+        lit = max(min(lit, self.n + HALF_SLACK - p), 0)
+        lit_at = p
+        p += lit
+        valid = p < self.n
+        offset = self.at(p) | self.at(p + 1) << 8
+        p2, ml = p + 2, token & 15
+        if valid and ml == 15:
+            e, p2 = self.ext(p2)
+            ml += e
+        return (p2 if valid else p), lit, lit_at, valid, offset, ml
+
+
+def _token_starts(row: _Row, segments: int):
+    """A.1: the split, speculative parse, stitched. Returns (the true
+    token positions in order, positions the stitch walked again)."""
+    n = row.n
+    S = -(-n // segments)
+    lists, exits = [], []
+    for w in range(segments):        # lane w walks segment w
+        p, lst = w * S, []
+        while p < n and p < (w + 1) * S:
+            lst.append(p)
+            p = row.head(p)[0]
+        lists.append(lst)
+        exits.append(p)
+    starts, x, redo = list(lists[0]), exits[0], 0
+    for w in range(1, segments):     # the stitch, in segment order
+        hi = (w + 1) * S
+        if x >= n:
+            break
+        if x >= hi:
+            continue                 # a literal run passed the segment
+        lst = lists[w]
+        j = bisect.bisect_left(lst, x)
+        while True:
+            if j < len(lst) and lst[j] == x:     # x is in w's list
+                starts += lst[j:]
+                x = exits[w]
+                break
+            starts.append(x)
+            redo += 1
+            x = row.head(x)[0]
+            if x >= hi or x >= n:
+                break
+            while j < len(lst) and lst[j] < x:
+                j += 1
+    return starts, redo
+
+
+def _decode_row_segmented(row: _Row, io: bytearray, base: int,
+                          o_limit: int, segments: int):
+    """A.1-A.4 on one row into io (history, if any, in io[:base]).
+    Returns (final cursor or None for the serial route, stats)."""
+    starts, redo = _token_starts(row, segments)
+    heads = [row.head(p)[1:] for p in starts]
+    # A.2: each sequence's cursor by a scan of lit + mlen
+    at, o = [], base
+    for lit, _, valid, _, ml in heads:
+        at.append(o)
+        o += lit + (ml + 4 if valid else 0)
+    # A.3: no clamp binds, every match's offset is in [1, om]
+    for oc, (lit, _, valid, off, ml) in zip(at, heads):
+        om = oc + lit
+        if not (om <= o_limit
+                and (not valid or (1 <= off <= om
+                                   and om + ml + 4 <= o_limit))):
+            return None, [len(starts), redo, 0, 1]
+    # A.4: every literal (they read only the row), then the matches group
+    # by group: those that read only bytes before the group's first output
+    # byte g0 in parallel (every read from the group's starting state),
+    # then the rest in order
+    for oc, (lit, lit_at, _, _, _) in zip(at, heads):
+        io[oc: oc + lit] = bytes(row.at(lit_at + i) for i in range(lit))
+    in_order = 0
+    for k0 in range(0, len(starts), GROUP):
+        g0, snap, late = at[k0], bytes(io), []
+        for oc, (lit, _, valid, off, ml) in zip(at[k0: k0 + GROUP],
+                                               heads[k0: k0 + GROUP]):
+            om, mlen = oc + lit, ml + 4
+            if not valid:
+                continue
+            if om - off + min(mlen, off) <= g0:
+                io[om: om + mlen] = bytes(snap[om - off + i % off]
+                                          for i in range(mlen))
+            else:
+                late.append((om, off, mlen))
+        for om, off, mlen in late:
+            for i in range(mlen):
+                io[om + i] = io[om - off + i % off]
+        in_order += len(late)
+    return o, [len(starts), redo, in_order, 0]
+
+
+def decode_blocks_pallas_segmented_plain(comp: torch.Tensor,
+                                         lens: torch.Tensor,
+                                         block_size: int,
+                                         hist: Optional[torch.Tensor] = None,
+                                         segments: int = SEGMENTS):
+    """decode_blocks_pallas as ``lz4t_token_decode`` computes it, in plain
+    Python over each row, for the tests:
+
+    1. each of *segments* lanes parses segment w of the row (from byte
+       w * ceil(len / segments)) without the output cursor's clamps,
+       recording its token positions, until it passes the segment; the
+       stitch, in segment order, keeps a segment's list from the true
+       cursor on if the cursor is in it, else walks on from the cursor;
+    2. every sequence's header, and its cursor by a scan;
+    3. the conformance check: no literal or match clamp binds and every
+       match's offset is in [1, om]; a row that fails it is decoded by
+       the serial interpreter (decode_blocks_pallas_plain);
+    4. every literal; then, in groups of GROUP sequences, the matches
+       whose source ends at or before the group's first output byte,
+       from the group's starting state, then its other matches in order.
+
+    Returns (out, out_lens, stats i64[nb, 4]): per row the sequences,
+    those the stitch walked again, the matches copied in order (0 on the
+    serial route) and the serial-route flag
+    (``decode_blocks_pallas.last_stats`` on CUDA)."""
+    _check_blocks(comp, lens, block_size, hist)
+    nb, M = comp.shape
+    base = W if hist is not None else 0
+    head = b"" if hist is None else bytes(hist.tolist())
+    out = torch.zeros((nb, block_size), dtype=torch.uint8)
+    out_lens = torch.zeros(nb, dtype=torch.int64)
+    stats = torch.zeros((nb, 4), dtype=torch.int64)
+    rows = comp.cpu()
+    for b in range(nb):
+        n = int(lens[b].clamp(0, M))
+        row = _Row(bytes(rows[b, :n].tolist()), n)
+        io = bytearray(head + bytes(block_size))
+        o, st = _decode_row_segmented(row, io, base, base + block_size,
+                                      segments)
+        stats[b] = torch.tensor(st)
+        if o is None:
+            got = decode_blocks_pallas_plain(comp[b: b + 1], lens[b: b + 1],
+                                             block_size, hist)
+            out[b], out_lens[b] = got[0][0].cpu(), got[1][0]
+        else:
+            out_lens[b] = o - base
+            out[b, : o - base] = torch.tensor(list(io[base: o]),
+                                              dtype=torch.uint8)
+    dev = comp.device
+    return out.to(dev), out_lens.to(dev), stats.to(dev)
 
 
 def _flat_spans(lits, matches):

@@ -256,12 +256,13 @@ def test_import_leaves_jax_out():
 def _port_sources():
     files = sorted(glob.glob(os.path.join(REPO, "divortio_lz4_tpu_torch",
                                           "**", "*.py"), recursive=True))
-    return files + [os.path.join(REPO, "chip_smoke.py"),
-                    os.path.join(REPO, "chip_breakdown.py")]
+    return files + [os.path.join(REPO, name) for name in
+                    ("chip_smoke.py", "chip_breakdown.py",
+                     "chip_decode_steps.py")]
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port, nor chip_smoke.py or chip_breakdown.py,
+    """No module of the port, nor the chip_*.py scripts at the root,
     imports jax or the JAX package, anywhere in the file (an AST scan, so
     imports inside functions count too)."""
     bad = []

@@ -105,6 +105,143 @@ def test_plain_decode_matches_jax_kernel(kind):
         assert not out[i, n:].any()
 
 
+def _ext(v: int) -> bytes:
+    """An LZ4 length extension of v (>= 15 already in the nibble)."""
+    v -= 15
+    return b"\xff" * (v // 255) + bytes([v % 255])
+
+
+def _seq(lit: bytes, off: int = 0, mlen: int = 0) -> bytes:
+    """One LZ4 sequence: the literals, then a match of mlen >= 4 bytes at
+    offset off (none when mlen is 0: the trailing literal run)."""
+    ml = mlen - 4 if mlen else 0
+    out = bytes([min(len(lit), 15) << 4 | min(ml, 15)])
+    out += (_ext(len(lit)) if len(lit) >= 15 else b"") + lit
+    if mlen:
+        out += off.to_bytes(2, "little") + (_ext(ml) if ml >= 15 else b"")
+    return out
+
+
+def _never_resync() -> bytes:
+    """1056 bytes (32 segments of 33): one sequence of 4 bytes, 349 of 3
+    ([00 01 00]: no literals, 4 bytes at offset 1), 5 trailing literal
+    bytes. The true tokens lie at 0 and 4 + 3i; a walk started at 33w lies
+    on 4 + 3i + 2 and stays there (its token 00 reads offset 0x0100, 3
+    bytes a step), so no segment past the first meets the true walk."""
+    row = _seq(b"A", 1, 4) + b"\x00\x01\x00" * 349 + _seq(b"WXYZ")
+    assert len(row) == 1056
+    return row
+
+
+def _group_edge() -> bytes:
+    """One sequence of 8 literals and an 8-byte match at offset 8, 63 of
+    no literals and a 4-byte match at offset 4, then 5 literals. Every
+    match reads the 4 bytes just before it, so only sequence 32, the
+    second group's first, reads bytes that end exactly at its group's
+    first output byte: 63 of the 64 matches are copied in order."""
+    return _seq(b"ABCDEFGH", 8, 8) + _seq(b"", 4, 4) * 63 + _seq(b"VWXYZ")
+
+
+def _segmented_case(kind: str, rng):
+    """(rows, window or None, block_size) of one case of the segmented
+    rendition."""
+    if kind in ("valid", "history", "hostile"):
+        return _block_batch(kind, rng)
+    if kind == "256k_dict":
+        window = _records(40_000)
+        return [_with_history(_records(250_000)[9000:], window)], window, \
+            256 * KB
+    if kind == "never_resync":
+        return [np.frombuffer(_never_resync(), np.uint8)], None, 2048
+    if kind == "group_edge":
+        # and a row whose two matches both read the first literals: both
+        # reach into their group
+        two = _seq(b"ABCDEFGH", 8, 4) + _seq(b"IJ", 14, 4) + _seq(b"VWXYZ")
+        return [np.frombuffer(_group_edge(), np.uint8),
+                np.frombuffer(two, np.uint8)], None, 2048
+    if kind == "o_limit":
+        # the cap binds: in a compressed block, in a match followed by a
+        # literal run, in a row's last match (no literals follow), and on
+        # the trailing literals of a one-sequence row
+        rows = [np.asarray(lz4.compress_raw(_records(3000))),
+                np.frombuffer(_seq(b"Q" * 40, 3, 20) + _seq(b"R" * 60),
+                              np.uint8),
+                np.frombuffer(_seq(b"Q" * 40, 3, 20), np.uint8),
+                np.frombuffer(_seq(bytes(range(100))), np.uint8)]
+        return rows, None, 50
+    # offset > om: a match reaching before the row's start (no history),
+    # first or second; and offset 0
+    rows = [np.frombuffer(_seq(b"ABCD", 10, 6) + _seq(b"VWXYZ"), np.uint8),
+            np.frombuffer(_seq(b"ABCD", 4, 6) + _seq(b"", 11, 4)
+                          + _seq(b"VWXYZ"), np.uint8),
+            np.frombuffer(_seq(b"ABCD", 0, 6) + _seq(b"VWXYZ"), np.uint8)]
+    return rows, None, 2048
+
+
+def _padded(rows):
+    M = -(-(max(len(r) for r in rows) + 256) // 1024) * 1024
+    comp = np.zeros((len(rows), M), np.uint8)
+    lens = np.array([len(r) for r in rows], np.int64)
+    for i, r in enumerate(rows):
+        comp[i, : len(r)] = r
+    return comp, lens
+
+
+def _right_aligned(window):
+    if window is None:
+        return None
+    hist = np.zeros(W, np.uint8)
+    hist[W - len(window):] = window
+    return hist
+
+
+SEGMENTED = ["valid", "history", "256k_dict", "never_resync", "group_edge",
+             "o_limit", "offset_past_om", "hostile"]
+
+
+@pytest.mark.parametrize("kind", SEGMENTED)
+def test_segmented_rendition_matches_plain_and_jax(kind):
+    """decode_blocks_pallas_segmented_plain (the CUDA kernel's split parse,
+    stitch, grouped copies and serial route, step by step) equals
+    decode_blocks_pallas_plain and the JAX kernel; its stats pin the
+    stitch, the group source test and the conformance check."""
+    rows, window, cap = _segmented_case(kind, np.random.default_rng(0xD1507))
+    comp, lens = _padded(rows)
+    hist = _right_aligned(window)
+    args = (torch.from_numpy(comp), torch.from_numpy(lens), cap,
+            None if hist is None else torch.from_numpy(hist))
+    out, out_lens, stats = pt_td.decode_blocks_pallas_segmented_plain(*args)
+    want = pt_td.decode_blocks_pallas_plain(*args)
+    assert torch.equal(out, want[0]) and torch.equal(out_lens, want[1])
+    jhist = np.zeros((len(rows), W), np.int32)
+    if hist is not None:
+        jhist[:] = hist
+    jo, jl = jax_pd.decode_blocks_pallas(
+        jnp.asarray(comp.astype(np.int32)),
+        jnp.asarray(lens.astype(np.int32)), jnp.asarray(jhist), cap,
+        hist is not None, True)
+    jo, jl = np.asarray(jo), np.asarray(jl)
+    np.testing.assert_array_equal(out_lens.numpy(), jl)
+    for i, n in enumerate(jl):
+        np.testing.assert_array_equal(out[i, :n].numpy(), jo[i, :n] & 0xFF)
+    seqs, redo, in_order, serial = stats.T.tolist()
+    expect_serial = {"o_limit": [1] * 4, "offset_past_om": [1] * 3,
+                     "hostile": [1] * len(rows)}
+    assert serial == expect_serial.get(kind, [0] * len(rows))
+    if kind == "never_resync":
+        # every segment past the first walked again: 351 sequences, 11 of
+        # them (positions 0, 4, ..., 31) in segment 0; of the 350 matches
+        # (offset 1) the first of groups 1-10 reads the byte just before
+        # its group, the other 340 are copied in order
+        assert seqs == [351] and redo == [340] and in_order == [340]
+    if kind == "group_edge":
+        assert seqs == [65, 3] and in_order == [63, 2]
+    if kind in ("valid", "256k_dict"):
+        # the stitch meets the speculative walks within a few sequences
+        assert all(r <= max(s // 4, 16) for s, r in zip(seqs, redo))
+        assert sum(seqs) > 100 and sum(redo) < sum(seqs) // 4
+
+
 def _linked_rows(kind: str, rng):
     """(rows, stored flags, window, block_size) of one linked chunk."""
     if kind == "frame":
@@ -282,25 +419,24 @@ def test_mutated_frames_match_jax(linked):
 
 @pytest.mark.cuda
 def test_cuda_blocks_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(5)
-    for kind in ("valid", "history", "hostile"):
-        rows, window, cap = _block_batch(kind, rng)
-        comp = np.zeros((len(rows), 20 * KB), np.uint8)
-        lens = np.array([len(r) for r in rows], np.int64)
-        for i, r in enumerate(rows):
-            comp[i, : len(r)] = r
-        hist = None
-        if window is not None:
-            hist = np.zeros(W, np.uint8)
-            hist[W - len(window):] = window
-            hist = torch.from_numpy(hist)
-        args = (torch.from_numpy(comp), torch.from_numpy(lens), cap, hist)
+    """The kernel against the plain version and its stats against the
+    segmented rendition's on every case of the rendition's test."""
+    for kind in SEGMENTED:
+        rows, window, cap = _segmented_case(kind,
+                                            np.random.default_rng(0xD1507))
+        comp, lens = _padded(rows)
+        hist = _right_aligned(window)
+        args = (torch.from_numpy(comp), torch.from_numpy(lens), cap,
+                None if hist is None else torch.from_numpy(hist))
         want = pt_td.decode_blocks_pallas_plain(*args)
         got = pt_td.decode_blocks_pallas(
             args[0].to(cuda), args[1].to(cuda), cap,
-            None if hist is None else hist.to(cuda))
+            None if hist is None else args[3].to(cuda))
         for g, w in zip(got, want):
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+        stats = pt_td.decode_blocks_pallas_segmented_plain(*args)[2]
+        assert torch.equal(pt_td.decode_blocks_pallas.last_stats.cpu().long(),
+                           stats), kind
 
 
 @pytest.mark.cuda

@@ -272,6 +272,124 @@ def test_wire_decode_matches_jax(kind, rng, compressible):
         assert not got[i, n:].any()   # zeros past out_len
 
 
+def _jax_wire(entries, bs, window):
+    """The JAX parse and interpret-mode wire decode of one batch: (port
+    parse, JAX output rows)."""
+    import jax.numpy as jnp
+    ref = jax_sd.parse_wire_batch(entries, bs, window)
+    use_hist = window is not None
+    want = np.asarray(jax_sd.decode_blocks_wire(
+        jnp.asarray(ref[0]), jnp.asarray(ref[1]), jnp.asarray(ref[2]), bs,
+        use_hist, jnp.asarray(ref[4]) if use_hist else None, True, ways=1))
+    return pt_wr.parse_wire_batch(entries, bs, window), want
+
+
+def _stack_wire(parts):
+    """One padded batch of several parse_wire_batch outputs (every part
+    with a history row, or none)."""
+    nb = sum(len(p[0]) for p in parts)
+    wcap = max(p[0].shape[1] for p in parts)
+    rcap = max(p[1].shape[1] for p in parts)
+    wire = np.zeros((nb, wcap), np.uint8)
+    recs = np.zeros((nb, rcap, 2), np.int32)
+    at = 0
+    for p in parts:
+        n = len(p[0])
+        wire[at: at + n, : p[0].shape[1]] = p[0]
+        recs[at: at + n, : p[1].shape[1]] = p[1]
+        at += n
+    cat = [np.concatenate([p[i] for p in parts]) for i in (2, 3)]
+    hist = None if parts[0][4] is None else \
+        np.concatenate([p[4] for p in parts])
+    return wire, recs, cat[0], cat[1], hist
+
+
+def _wire_kind(kind, rng, compressible):
+    """(padded batch, JAX output rows, the hostile block or None) of one
+    resolved-wire case: "corpora" and "history" as above; "rows_differ",
+    two blocks compressed against two different history windows in one
+    batch; "hostile", the corpora batch with one block's records replaced
+    by random words whose offsets are below 64 (matches that reach into
+    themselves and offsets of 0), so it fails the conformance check."""
+    bs = 256 * KB
+    if kind in ("corpora", "history", "hostile"):
+        entries, _, window = _wire_entries(
+            "history" if kind == "history" else "corpora", rng,
+            compressible)
+        batch, want = _jax_wire(entries, bs, window)
+    else:
+        from divortio_lz4_tpu.ops.block_ref import compress_block_ref
+        parts, wants = [], []
+        for seed in (46, 47):
+            data = mixed_corpus(90_000, seed)
+            hist, plain = data[:40_000], data[40_000:]
+            dst = np.zeros(2 * len(data) + 1024, np.uint8)
+            n = compress_block_ref(data, dst, len(hist), len(plain),
+                                   np.zeros(16384, np.int32), 0)
+            batch, want = _jax_wire([(dst[:n], False)], bs, hist)
+            parts.append(batch)
+            wants.append(want)
+        assert not np.array_equal(parts[0][4], parts[1][4])
+        batch, want = _stack_wire(parts), np.concatenate(wants)
+    h = None
+    if kind == "hostile":
+        wire, recs, counts, out_lens, hist = batch
+        h = int(np.argmax(counts))
+        n = int(counts[h])
+        w = rng.integers(0, 2**32, (n, 2), dtype=np.uint64)
+        w[:, 1] = (w[:, 1] & ~np.uint64(0xFFFF)) | (w[:, 1] & np.uint64(63))
+        recs = recs.copy()
+        recs[h, :n] = w.astype(np.uint32).view(np.int32)
+        batch = (wire, recs, counts, out_lens, hist)
+    return batch, want, h
+
+
+@pytest.mark.parametrize("kind", ["corpora", "history", "rows_differ",
+                                  "hostile"])
+def test_wire_resolved_matches_plain_and_jax(kind, rng, compressible):
+    """The parallel design's plain rendition on the padded form (dst scan,
+    conformance, spans, pointer doubling with each block's own history
+    row, the serial walk for the blocks that fail the check) equals
+    decode_blocks_wire_plain and the JAX kernel."""
+    (wire, recs, counts, out_lens, hist), want, h = _wire_kind(
+        kind, rng, compressible)
+    bs = 256 * KB
+    args = [torch.from_numpy(x) for x in (wire, recs, counts)]
+    th = None if hist is None else torch.from_numpy(hist)
+    got, stats = pt_wr.decode_blocks_wire_resolved(*args, bs, th)
+    plain = pt_wr.decode_blocks_wire_plain(*args, bs, th)
+    assert torch.equal(got, plain)
+    assert stats["serial_chains"] == (1 if kind == "hostile" else 0)
+    assert stats["rounds"] and max(stats["rounds"]) >= 2
+    for i in range(len(wire)):
+        if i != h:
+            n = int(out_lens[i])
+            np.testing.assert_array_equal(got[i, :n].numpy(), want[i, :n])
+
+
+def test_wire_chains_scan_each_block():
+    """wire_chains: block b's records keep their words, their dst is the
+    running sum of ll+ml inside the block, stored as at most block_size,
+    and slots past counts[b] are dropped."""
+    recs = torch.zeros((2, 4, 2), dtype=torch.int32)
+    lm = [(3, 4), (0, 200), (255, 255), (9, 9)]
+    for b in range(2):
+        for k, (ll, ml) in enumerate(lm):
+            recs[b, k, 0] = 10 * k + b
+            recs[b, k, 1] = 5 | ll << 16 | (ml << 24 if ml < 128 else
+                                            (ml << 24) - (1 << 32))
+    wire = torch.zeros((2, 1024), dtype=torch.uint8)
+    batch = pt_wr.wire_chains(wire, recs, torch.tensor([4, 2],
+                                                       dtype=torch.int32),
+                              512)
+    assert batch.rec_off.tolist() == [0, 4, 6]
+    assert batch.out_off.tolist() == [0, 512, 1024]
+    assert batch.wire_off.tolist() == [0, 1024, 2048]
+    w = batch.rec_words.to(torch.int64) & 0xFFFFFFFF
+    assert w[:, 2].tolist() == [0, 7, 207, 512, 0, 7]
+    assert w[:, 0].tolist() == [0, 10, 20, 30, 1, 11]
+
+
 def _batch_for_hostile():
     frame, data, _ = _chain_frame("independent_1m")
     header, blocks, _ = parse_block_index(frame)
@@ -355,11 +473,11 @@ def test_cuda_chain_kernel_matches_plain(case, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["corpora", "history"])
+@pytest.mark.parametrize("kind", ["corpora", "history", "rows_differ",
+                                  "hostile"])
 def test_cuda_wire_kernel_matches_plain(kind, rng, compressible, cuda):
-    entries, _, window = _wire_entries(kind, rng, compressible)
-    wire, recs, counts, _, hist = pt_wr.parse_wire_batch(entries, 256 * KB,
-                                                         window)
+    (wire, recs, counts, _, hist), _, _ = _wire_kind(kind, rng,
+                                                     compressible)
     args = [torch.from_numpy(x).to(cuda) for x in (wire, recs, counts)]
     h = None if hist is None else torch.from_numpy(hist).to(cuda)
     want = pt_wr.decode_blocks_wire_plain(*args, 256 * KB, h)
@@ -368,6 +486,8 @@ def test_cuda_wire_kernel_matches_plain(kind, rng, compressible, cuda):
     torch.cuda.synchronize()
     assert pt_wr.decode_blocks_wire.launches == before + 1
     assert torch.equal(got, want)
+    stats = pt_wr.decode_blocks_wire.last.stats()
+    assert stats["serial_chains"] == (1 if kind == "hostile" else 0)
 
 
 @pytest.mark.parametrize("case", ["linked_64k", "linked_256k_stored",
