@@ -21,7 +21,11 @@ those of the default frame's route through parallel/device.py:
 - the corpus at 256 KB independent blocks decoded by the split engine
   ("decode_256k"): block index, host record parse, H2D, wire_decode
   kernel (its stages: dst scan, conformance, spans, rounds, gather,
-  serial walk), D2H.
+  serial walk), D2H;
+- the corpus at 64 KB independent blocks with a content checksum, the
+  split engine's main path ("decode_64k"): block index, host record
+  parse, flat records, H2D, compact_decode kernel (its stages: groups,
+  serial route; and its per-block stats), D2H, join, content xxh32.
 
 Both chain kernels' resolve stats (pointer-doubling rounds, scratch bytes
 and, on the record path, chains decoded serially) are printed beside their
@@ -237,6 +241,57 @@ def _wire_decode(torch, pt, raw, dev, layer, kernel, res):
                              "corpus")
 
 
+def _compact_decode(torch, pt, raw, dev, layer, kernel, res):
+    """The corpus at 64 KB independent blocks with a content checksum,
+    decoded by the split engine: host parse into records, flat records,
+    H2D, compact_decode (its stages under torch.profiler), D2H, join,
+    content xxh32."""
+    from divortio_lz4_tpu_torch.config import FrameConfig
+    from divortio_lz4_tpu_torch.ops.compact_decode import \
+        decode_blocks_compact
+    from divortio_lz4_tpu_torch.ops.split_decode import (build_flat_records,
+                                                         parse_wire_raw)
+    from divortio_lz4_tpu_torch.parallel.device import parse_block_index
+    from divortio_lz4_tpu_torch.xxh import xxhash32
+
+    side = "decode_64k"
+    res[side] = {}
+    frame = pt.compress_frame(raw, FrameConfig(
+        block_size=65536, block_independence=True, content_checksum=True),
+        device=dev)
+    res[side]["decompress_frame"] = _median_ms(
+        torch, lambda: pt.decompress_frame(frame, device=dev))[0]
+    _, blocks, _ = layer(side, "parse_block_index",
+                         lambda: parse_block_index(frame))
+    entries = [(frame[o: o + n], st) for o, n, st in blocks]
+    wire, recs_l, counts, out_lens, _ = layer(
+        side, "parse records (host)",
+        lambda: parse_wire_raw(entries, 65536, None))
+    rec_words, rec_off = layer(side, "flat records (numpy)",
+                               lambda: build_flat_records(recs_l))
+    args = layer(side, "H2D wire + records", lambda: [
+        torch.from_numpy(a).to(dev) for a in (wire, rec_words, rec_off,
+                                              out_lens)])
+    out = kernel(side, "compact_decode",
+                 lambda: decode_blocks_compact(*args, 65536),
+                 f", {int(counts.sum())} records")
+    st = decode_blocks_compact.last_stats.cpu().long()
+    res[side]["stats sums"] = st.sum(0).tolist()
+    res[side]["stats maxima"] = st.max(0).values.tolist()
+    print(f"{side}: compact_decode stats (records, groups, levels, the "
+          f"largest group's levels, serial) sums {st.sum(0).tolist()} "
+          f"maxima {st.max(0).values.tolist()}")
+    _per_kernel(torch, side, "compact_decode",
+                lambda: decode_blocks_compact(*args, 65536), res)
+    rows = layer(side, "D2H output", lambda: out.cpu().numpy())
+    got = layer(side, "join", lambda: np.concatenate(
+        [rows[i, : out_lens[i]] for i in range(len(rows))]))
+    layer(side, "content xxh32", lambda: xxhash32(got, 0))
+    if got.tobytes() != raw.tobytes():
+        raise AssertionError("the 64 KB layers' output differs from the "
+                             "corpus")
+
+
 def _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel, res):
     """The default frame's decode with engine="pallas": host scan, one
     token chain for the linked frame, token_decode_linked."""
@@ -429,6 +484,7 @@ def main() -> int:
         _default_pallas_decode(torch, pt, raw, frame, dev, layer, kernel,
                                res)
         _wire_decode(torch, pt, raw, dev, layer, kernel, res)
+        _compact_decode(torch, pt, raw, dev, layer, kernel, res)
 
     # -- device busy share -----------------------------------------------
     profiled = [("encode", lambda: pt.compress_frame(

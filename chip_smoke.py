@@ -20,7 +20,10 @@ which must be exact.
    PyTorch version on the card, byte for byte, on the 64 MiB corpus
    frame's blocks (the main-path shape), dense 64 KB blocks, a dictionary
    batch and a batch with one row of random records; both timed with CUDA
-   events.
+   events. Each batch prints the kernel's per-block stats (records, groups
+   of 32, dependency levels, the largest group's levels, blocks routed
+   serially): the serial count must be 0, and exactly 1 with the random
+   row.
 3. One 64 MiB frame through compress_frame / decompress_frame (64 KB
    independent blocks, content checksum): exact round trip, decoded
    exactly by engine="pallas" too, size against the engine="pallas"
@@ -97,9 +100,11 @@ which must be exact.
 10. split_decode (the placed-literal decode) against its plain version,
    byte for byte: on the 64 MiB hybrid frame's blocks through
    parse_block_batch, a dictionary batch, and the main batch with one
-   row's records replaced by random words (the other rows unchanged);
-   decode_wire_blocks of the frame's blocks gives the corpus (launches
-   counted there); the kernel timed on the frame's compressed blocks.
+   row's records replaced by random words (the other rows unchanged),
+   each with the kernel's per-block stats (as phase 2's; serial blocks 0,
+   and exactly 1 with the random row); decode_wire_blocks of the frame's
+   blocks gives the corpus (launches counted there); the kernel timed on
+   the frame's compressed blocks.
 
 Then a JSON line describing the kernels (with each one's bound: the bytes
 the function must move, without row padding or entries it never reads,
@@ -269,6 +274,21 @@ def _token_stats(fn, what: str, serial: int) -> str:
     parts = [f"{n} {int(st[:, i].sum())} (max {int(st[:, i].max())} a "
              f"block)" for i, n in enumerate(names)]
     return ", ".join(parts) + f", serial blocks {serial}"
+
+
+def _group_stats(fn, what: str, serial: int) -> str:
+    """The per-block stats of a record decode's last CUDA call
+    (decode_blocks_compact or decode_blocks_split) as sums and maxima;
+    raises unless exactly *serial* blocks took the serial route."""
+    st = fn.last_stats.cpu().long()
+    if int(st[:, 4].sum()) != serial:
+        raise AssertionError(f"{what}: {int(st[:, 4].sum())} blocks took "
+                             f"the serial route, expected {serial}")
+    parts = [f"{n} {int(st[:, i].sum())} (max {int(st[:, i].max())} a "
+             f"block)" for i, n in enumerate(("records", "groups",
+                                              "levels"))]
+    return (", ".join(parts) + f", the largest group's levels "
+            f"{int(st[:, 3].max())}, serial blocks {serial}")
 
 
 def _stats_text(stats: dict) -> str:
@@ -1161,9 +1181,11 @@ def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
                         "compressed blocks)", margs),
                        (f"{len(dcomps)} blocks with a dictionary", dargs)):
         got = decode_blocks_split(*args)
+        stats = _group_stats(decode_blocks_split, f"split_decode {name}", 0)
         want, p_ms = _timed(torch, lambda: decode_blocks_split_plain(*args))
         err = max(err, _compare(torch, f"split_decode {name}", got, want,
                                 tag, 10))
+        print(f"phase 10: split_decode {name}: {stats} {tag}")
         outs[name] = (got, p_ms)
     plain_ms = next(iter(outs.values()))[1]
     mout = next(iter(outs.values()))[0]
@@ -1174,6 +1196,7 @@ def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
         -2**31, 2**31, (nrec, 2), dtype=np.int64).astype(np.int32)).to(dev)
     hargs = [margs[0], hostile] + margs[2:]
     hgot = decode_blocks_split(*hargs)
+    stats = _group_stats(decode_blocks_split, "split_decode hostile row", 1)
     err = max(err, _compare(torch, f"split_decode, row {h} random records",
                             hgot, decode_blocks_split_plain(*hargs), tag,
                             10))
@@ -1181,7 +1204,7 @@ def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
     if not torch.equal(hgot[others], mout[others]):
         raise AssertionError(f"random records in row {h} changed another row")
     print(f"phase 10: split_decode hostile row: no fault, the other "
-          f"{len(others)} rows exact {tag}")
+          f"{len(others)} rows exact; {stats} {tag}")
 
     # -- the main path: decode_wire_blocks of the frame's blocks -----------
     decode_blocks_split.launches = 0
@@ -1201,6 +1224,7 @@ def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
           f"corpus exactly, {len(corpus) / dt / 1e6:.1f} MB/s; split_decode "
           f"launches {launches} {tag}")
     ms = _cuda_ms(torch, lambda: decode_blocks_split(*margs), 5)
+    stats = _group_stats(decode_blocks_split, "split_decode main batch", 0)
     # literal images without padding (the decoded length of each block),
     # 8 B per record, decoded bytes out; no history in the main batch
     decoded_bytes = int(main[3].sum())
@@ -1209,7 +1233,8 @@ def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
                                   decoded_bytes))
     print(f"phase 10: split_decode {len(comps)} x 64 KB: kernel {ms:.3f} ms "
           f"({decoded_bytes / ms / 1e3:.1f} MB/s of output), plain "
-          f"{plain_ms:.1f} ms, bound {res['bound_ms']:.4f} ms {tag}")
+          f"{plain_ms:.1f} ms, bound {res['bound_ms']:.4f} ms; {stats} "
+          f"{tag}")
     return res
 
 
@@ -1280,6 +1305,8 @@ def main() -> int:
     for name, (b, max_recs) in cases.items():
         args_ = (b.wire, b.rec_words, b.rec_off, b.out_lens, 65536, b.hist)
         got = decode_blocks_compact(*args_)
+        stats = _group_stats(decode_blocks_compact, f"compact_decode {name}",
+                             int(name == "hostile"))
         want = decode_blocks_compact_plain(*args_)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
@@ -1289,7 +1316,8 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel != plain in rows {bad[:8]}")
         outs[name] = got
         print(f"phase 2: {name}: {b.wire.shape[0]} blocks, <= {max_recs} "
-              f"records/block, kernel == plain byte for byte {tag}")
+              f"records/block, kernel == plain byte for byte; {stats} "
+              f"{tag}")
     # the hostile row stays in its row: every other row decodes as before
     others = [i for i in range(outs["dense"].shape[0]) if i != 5]
     if not torch.equal(outs["hostile"][others], outs["dense"][others]):
@@ -1300,6 +1328,8 @@ def main() -> int:
         b = cases[name][0]
         args_ = (b.wire, b.rec_words, b.rec_off, b.out_lens, 65536, b.hist)
         k_ms = _cuda_ms(torch, lambda: decode_blocks_compact(*args_), 5)
+        stats = _group_stats(decode_blocks_compact, f"compact_decode {name}",
+                             0)
         p_ms = _cuda_ms(torch, lambda: decode_blocks_compact_plain(*args_),
                         1)
         # wire bytes, records, offsets and lengths in (the dictionary once,
@@ -1309,7 +1339,7 @@ def main() -> int:
             len(d) if b.hist is not None else None, int(b.out_lens.sum())))
         mb = int(b.out_lens.sum()) / 1e6
         print(f"phase 2: {name}: kernel {k_ms:.3f} ms ({mb / k_ms:.1f} "
-              f"GB/s of output), plain {p_ms:.1f} ms {tag}")
+              f"GB/s of output), plain {p_ms:.1f} ms; {stats} {tag}")
 
     # -- phase 3: one 64 MiB frame ---------------------------------------
     corpus_b = corpus.tobytes()

@@ -1,4 +1,4 @@
-"""Compact-record decode: the CUDA kernel's wrapper and its plain version.
+"""Compact-record decode: the CUDA kernel's wrapper and its plain versions.
 
 ``decode_blocks_compact`` is the port of the TPU kernel
 ``_make_wire_kernel_compact`` (``divortio_lz4_tpu/ops/pallas_split_decode.py
@@ -6,8 +6,12 @@
 nvcc at first use) or raises; on a CPU tensor it runs
 ``decode_blocks_compact_plain``, the same function in plain PyTorch, which
 the CPU tests use and ``chip_smoke.py`` holds the kernel against.
+``decode_blocks_compact_grouped_plain`` renders the kernel's own algorithm
+(conformance check, literals first, matches by dependency levels in groups
+of 32 records, the serial route for blocks that fail the check) with its
+per-block stats, for the CPU tests.
 
-Contract (both versions): block b's records are
+Contract (every version): block b's records are
 ``rec_words[rec_off[b]:rec_off[b+1]]``; each writes at most 128 bytes at
 ``dst`` (literals from ``wire[b, src:]``, then a match from ``dst + ll -
 off`` in the output), reading every byte before writing any. The TPU
@@ -22,19 +26,22 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .._build import load_library
+from .record_groups import run_groups
 
 W = 65536       # dictionary history ahead of the payload
 SPAN = 128      # output bytes one record covers at most
+STATS = ("records", "groups", "levels", "most levels", "serial")
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = load_library("compact_decode").lz4t_compact_decode
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, i64, i64, p, i64, p, p, p, i64, p, p]
+    fn.argtypes = [p, i64, i64, p, i64, p, p, p, i64, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,9 +84,12 @@ def decode_blocks_compact(wire: torch.Tensor, rec_words: torch.Tensor,
 
     wire u8[nb, wire_cap]; rec_words i32[N, 2]; rec_off i64[nb + 1];
     out_lens i64[nb]; hist u8[nb, 65536] or None. Returns u8[nb,
-    block_size] on the inputs' device. On CUDA the kernel is queued on the
-    current stream and nothing synchronises; ``launches`` counts those
-    launches."""
+    block_size] on the inputs' device. On CUDA the kernels are queued on
+    the current stream and nothing synchronises; ``launches`` counts those
+    launches and ``last_stats`` (i32[nb, 5] on the device) holds, per
+    block, the records, groups of 32, levels (their sum and the largest
+    group's) and the serial-route flag
+    (decode_blocks_compact_grouped_plain's stats)."""
     _check(wire, rec_words, rec_off, out_lens, block_size, hist)
     if wire.device.type == "cpu":
         return decode_blocks_compact_plain(wire, rec_words, rec_off,
@@ -89,6 +99,9 @@ def decode_blocks_compact(wire: torch.Tensor, rec_words: torch.Tensor,
     nb = wire.shape[0]
     out = torch.empty((nb, block_size), dtype=torch.uint8,
                       device=wire.device)
+    stats = torch.zeros((nb, len(STATS)), dtype=torch.int32,
+                        device=wire.device)
+    decode_blocks_compact.last_stats = stats
     if nb == 0:
         return out
     if rec_words.data_ptr() % 8 or (hist is not None
@@ -100,7 +113,7 @@ def decode_blocks_compact(wire: torch.Tensor, rec_words: torch.Tensor,
         rc = fn(wire.data_ptr(), nb, wire.shape[1], rec_words.data_ptr(),
                 rec_words.shape[0], rec_off.data_ptr(), out_lens.data_ptr(),
                 None if hist is None else hist.data_ptr(), block_size,
-                out.data_ptr(), stream)
+                out.data_ptr(), stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"compact_decode kernel launch failed: "
                            f"cudaError {rc}")
@@ -109,6 +122,7 @@ def decode_blocks_compact(wire: torch.Tensor, rec_words: torch.Tensor,
 
 
 decode_blocks_compact.launches = 0
+decode_blocks_compact.last_stats = None
 
 
 def decode_blocks_compact_plain(wire: torch.Tensor, rec_words: torch.Tensor,
@@ -159,3 +173,78 @@ def decode_blocks_compact_plain(wire: torch.Tensor, rec_words: torch.Tensor,
     keep = torch.arange(block_size, device=dev)[None, :] \
         < out_lens.clamp(0, block_size)[:, None]
     return torch.where(keep, io[:, out_base:bs_limit], 0).to(torch.uint8)
+
+
+def _conforms(src, ll, ml, dst, off, excl, block_size, out_base, src_max):
+    """The kernel's conformance check of each record (raw fields; excl is
+    the block's earlier ll + ml). Records that write nothing pass."""
+    tot = ll + ml
+    return (tot == 0) | ((dst <= block_size) & (tot <= SPAN)
+                         & (dst + tot <= block_size) & (src <= src_max)
+                         & (off >= 1) & (dst == excl)
+                         & ((ml == 0) | ((off >= tot)
+                                         & (out_base + dst + ll - off >= 0))))
+
+
+def decode_blocks_compact_grouped_plain(wire: torch.Tensor,
+                                        rec_words: torch.Tensor,
+                                        rec_off: torch.Tensor,
+                                        out_lens: torch.Tensor,
+                                        block_size: int,
+                                        hist: Optional[torch.Tensor] = None):
+    """decode_blocks_compact as ``csrc/compact_decode.cu`` computes it, in
+    plain numpy over each block, for the tests:
+
+    1. the conformance check on every record that writes (ll + ml > 0):
+       no clamp binds, dst is the running sum of the block's earlier
+       ll + ml, and a match reads only bytes before its record and none
+       below the io row; a block that fails it is decoded by the serial
+       plain version (decode_blocks_compact_plain);
+    2. every literal, in no order;
+    3. the matches in groups of 32 records by dependency levels
+       (``record_groups.run_levels``).
+
+    Returns (out, stats i64[nb, 5]): per block the records, groups,
+    levels (their sum and the largest group's) and the serial-route flag
+    (``decode_blocks_compact.last_stats`` on CUDA)."""
+    _check(wire, rec_words, rec_off, out_lens, block_size, hist)
+    nb, wire_cap = wire.shape
+    n_rec = rec_words.shape[0]
+    base = W if hist is not None else 0
+    rows = wire.cpu().numpy()
+    words = rec_words.cpu().numpy().view(np.uint32).astype(np.int64)
+    offs = rec_off.cpu().numpy()
+    lens = out_lens.cpu().numpy()
+    hists = None if hist is None else hist.cpu().numpy()
+    out = np.zeros((nb, block_size), np.uint8)
+    stats = np.zeros((nb, len(STATS)), np.int64)
+    for b in range(nb):
+        r0 = min(max(int(offs[b]), 0), n_rec)
+        r1 = min(max(int(offs[b + 1]), r0), n_rec)
+        w0, w1 = words[r0:r1, 0], words[r0:r1, 1]
+        src, ll, ml = w0 & 0xFFFF, (w0 >> 16) & 0xFF, w0 >> 24
+        dst, off = w1 & 0xFFFF, w1 >> 16
+        tot = ll + ml
+        excl = np.cumsum(tot) - tot
+        if not _conforms(src, ll, ml, dst, off, excl, block_size, base,
+                         wire_cap - 2 * SPAN).all():
+            stats[b] = (r1 - r0, 0, 0, 0, 1)
+            continue
+        io = np.zeros(base + block_size, np.uint8)
+        if hists is not None:
+            io[:base] = hists[b]
+        for s, n, d in zip(src[ll > 0], ll[ll > 0], dst[ll > 0]):
+            io[base + d: base + d + n] = rows[b, s: s + n]
+        md = base + dst + ll
+        groups, levels, most = run_groups(io, md - off, md, ml)
+        stats[b] = (r1 - r0, groups, levels, most, 0)
+        olen = min(max(int(lens[b]), 0), block_size)
+        out[b, :olen] = io[base: base + olen]
+    got = torch.from_numpy(out)
+    serial = np.flatnonzero(stats[:, 4])
+    if len(serial):
+        got[serial] = decode_blocks_compact_plain(
+            wire, rec_words, rec_off, out_lens, block_size,
+            hist).cpu()[serial]
+    dev = wire.device
+    return got.to(dev), torch.from_numpy(stats).to(dev)

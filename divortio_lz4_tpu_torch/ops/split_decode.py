@@ -22,7 +22,11 @@ image) and leaves match records ``(offset | mlen<<16, dst)`` of at most 128
 bytes. ``decode_blocks_split`` is the port of the TPU kernel
 ``_make_kernel`` (``pallas_split_decode.py:91``): on a CUDA tensor it
 launches ``csrc/split_decode.cu`` or raises; on a CPU tensor it runs
-``decode_blocks_split_plain``. The TPU interleave scheduling (``plan_ways``,
+``decode_blocks_split_plain``; ``decode_blocks_split_grouped_plain``
+renders the kernel's own algorithm (conformance check, matches by
+dependency levels in groups of 32 records, the serial route for blocks
+that fail the check) with its per-block stats, for the CPU tests. The TPU
+interleave scheduling (``plan_ways``,
 ``build_sorted_batch``, ``grouped_trips``, trips, ``UNROLL``) is not
 ported: a GPU block runs its own ``counts[b]`` records, and the NOOP
 padding writes nothing, so the bytes are the same. No frame route runs
@@ -46,6 +50,8 @@ from .._build import load_library
 from .._device import resolve_device
 from ..constants import WINDOW_SIZE
 from ..host import parse_records2_native, parse_records_native
+from .compact_decode import STATS
+from .record_groups import run_groups
 
 W = WINDOW_SIZE
 SLACK = 256
@@ -221,7 +227,7 @@ def parse_block_batch(comps, block_size: int, histories=None):
 def _kernel():
     fn = load_library("split_decode").lz4t_split_decode
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, i64, i64, p, i64, p, i64, i64, p, p]
+    fn.argtypes = [p, i64, i64, p, i64, p, i64, i64, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -253,7 +259,11 @@ def decode_blocks_split(lit: torch.Tensor, recs: torch.Tensor,
     records block b runs. Returns u8[nb, block_size], the image's block
     region after the records, on the inputs' device (output lengths come
     from the host parser). On CUDA the kernel is queued on the current
-    stream and nothing synchronises; ``launches`` counts those launches."""
+    stream and nothing synchronises; ``launches`` counts those launches
+    and ``last_stats`` (i32[nb, 5] on the device) holds, per block, the
+    records, groups of 32, levels (their sum and the largest group's) and
+    the serial-route flag (decode_blocks_split_grouped_plain's stats). The
+    kernel takes out_base + block_size < 2**31 and 8-byte aligned recs."""
     out_base = W if use_history else 0
     _check_split(lit, recs, counts, block_size, out_base)
     if lit.device.type == "cpu":
@@ -261,8 +271,14 @@ def decode_blocks_split(lit: torch.Tensor, recs: torch.Tensor,
                                          use_history)
     if lit.device.type != "cuda":
         raise ValueError(f"no split decode for device {lit.device}")
+    if out_base + block_size >= 1 << 31 or recs.data_ptr() % 8:
+        raise ValueError("the CUDA split decode takes out_base + block_size "
+                         "< 2**31 and 8-byte aligned recs")
     nb = lit.shape[0]
     out = torch.empty((nb, block_size), dtype=torch.uint8, device=lit.device)
+    stats = torch.zeros((nb, len(STATS)), dtype=torch.int32,
+                        device=lit.device)
+    decode_blocks_split.last_stats = stats
     if nb == 0:
         return out
     fn = _kernel()
@@ -270,7 +286,7 @@ def decode_blocks_split(lit: torch.Tensor, recs: torch.Tensor,
         stream = torch.cuda.current_stream(lit.device).cuda_stream
         rc = fn(lit.data_ptr(), nb, lit.shape[1], recs.data_ptr(),
                 recs.shape[1], counts.data_ptr(), out_base, block_size,
-                out.data_ptr(), stream)
+                out.data_ptr(), stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"split_decode kernel launch failed: "
                            f"cudaError {rc}")
@@ -279,6 +295,7 @@ def decode_blocks_split(lit: torch.Tensor, recs: torch.Tensor,
 
 
 decode_blocks_split.launches = 0
+decode_blocks_split.last_stats = None
 
 
 def decode_blocks_split_plain(lit: torch.Tensor, recs: torch.Tensor,
@@ -308,6 +325,57 @@ def decode_blocks_split_plain(lit: torch.Tensor, recs: torch.Tensor,
         put = t < mlen[:, None]
         io[rows[put], (dst[:, None] + t)[put]] = vals[put]
     return io[:, out_base: out_base + block_size].contiguous()
+
+
+def decode_blocks_split_grouped_plain(lit: torch.Tensor, recs: torch.Tensor,
+                                      counts: torch.Tensor, block_size: int,
+                                      use_history: bool = False):
+    """decode_blocks_split as ``csrc/split_decode.cu`` computes it, in plain
+    numpy over each block, for the tests:
+
+    1. the conformance check on every record that writes (mlen > 0): no
+       clamp binds, mlen <= offset, and its write range starts at or after
+       the end of every earlier one; a block that fails it is decoded by
+       the serial plain version (decode_blocks_split_plain);
+    2. the matches over the literal image in groups of 32 records by
+       dependency levels (``record_groups.run_levels``).
+
+    Returns (out, stats i64[nb, 5]): per block the records, groups,
+    levels (their sum and the largest group's) and the serial-route flag
+    (``decode_blocks_split.last_stats`` on CUDA)."""
+    base = W if use_history else 0
+    _check_split(lit, recs, counts, block_size, base)
+    nb, cap = recs.shape[:2]
+    images = lit.cpu().numpy()
+    words = recs.cpu().numpy().astype(np.int64)
+    ns = counts.cpu().numpy()
+    out = np.zeros((nb, block_size), np.uint8)
+    stats = np.zeros((nb, len(STATS)), np.int64)
+    for b in range(nb):
+        n = min(max(int(ns[b]), 0), cap)
+        w0, w1 = words[b, :n, 0], words[b, :n, 1]
+        offset, mlen, dst = w0 & 0xFFFF, (w0 >> 16) & 0xFFFF, w1 + base
+        writes = mlen > 0
+        end = np.where(writes, dst + mlen, 0)
+        before = np.maximum.accumulate(np.concatenate([[0], end]))[:-1]
+        ok = ~writes | ((w1 >= 0) & (w1 <= block_size) & (dst >= 1)
+                        & (offset >= 1) & (offset <= dst) & (mlen <= SPAN)
+                        & (mlen <= base + block_size - dst)
+                        & (mlen <= offset) & (dst >= before))
+        if not ok.all():
+            stats[b] = (n, 0, 0, 0, 1)
+            continue
+        io = images[b].copy()
+        groups, levels, most = run_groups(io, dst - offset, dst, mlen)
+        stats[b] = (n, groups, levels, most, 0)
+        out[b] = io[base: base + block_size]
+    got = torch.from_numpy(out)
+    serial = np.flatnonzero(stats[:, 4])
+    if len(serial):
+        got[serial] = decode_blocks_split_plain(
+            lit, recs, counts, block_size, use_history).cpu()[serial]
+    dev = lit.device
+    return got.to(dev), torch.from_numpy(stats).to(dev)
 
 
 def decode_wire_blocks(comps, block_size: int, *, device="cuda") -> list:

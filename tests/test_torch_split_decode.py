@@ -193,22 +193,148 @@ def test_wrapper_checks_inputs():
         pt_sd.parse_records(np.zeros(4, np.uint8), np.zeros(8, np.uint8), 64)
 
 
+@pytest.mark.parametrize("case", ["sorted_blocks", "history", "garbage",
+                                  "noop_identity"])
+def test_grouped_rendition_matches_plain_and_jax(case):
+    """The kernel's algorithm (conformance, levels) gives the serial plain
+    version's and the JAX kernel's bytes; the parser's blocks take the
+    grouped route, the garbage rows the serial one."""
+    lit, recs, counts, bs, uh, plains = _batch(case)
+    args = [torch.from_numpy(a) for a in (lit, recs, counts)]
+    got, stats = pt_sd.decode_blocks_split_grouped_plain(*args, bs, uh)
+    assert torch.equal(got, pt_sd.decode_blocks_split_plain(*args, bs, uh))
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_decode(lit, recs, counts, bs, uh))
+    for i, p in enumerate(plains or []):
+        np.testing.assert_array_equal(got[i, : len(p)].numpy(), p)
+    st = stats.numpy()
+    np.testing.assert_array_equal(st[:, 0], counts)
+    assert st[:, 4].tolist() == [int(case == "garbage")] * len(lit)
+    if case != "garbage":
+        np.testing.assert_array_equal(st[:, 1], -(-counts // 32))
+
+
+@pytest.mark.parametrize("name", ["dictionary"] + sorted(_cases()))
+def test_parser_records_conform(name):
+    """Every record lz4t_parse_records emits passes the conformance check
+    (doubling chains and 128-byte splits included)."""
+    if name == "dictionary":
+        hist, comp, plain = _dict_block()
+        batch = pt_sd.parse_block_batch([comp], len(plain), [hist])
+    else:
+        plain = _cases()[name]
+        batch = pt_sd.parse_block_batch([np.asarray(lz4.compress_raw(plain))],
+                                        len(plain))
+    lit, recs, counts, _, uh = batch
+    got, stats = pt_sd.decode_blocks_split_grouped_plain(
+        *(torch.from_numpy(a) for a in (lit, recs, counts)), len(plain), uh)
+    assert stats[0, 4] == 0
+    np.testing.assert_array_equal(got[0].numpy(), plain)
+
+
+# one one-record mutation a conformance rule
+RULES = ("dst_negative", "dst_past_cap", "dst_zero", "offset0",
+         "offset_past_dst", "span", "room", "overlap", "order")
+
+
+def _mutated(rule):
+    """A parser-built batch (block 0 fills its 8 KB, block 1 holds 6000
+    bytes; with a history window for "dst_negative", so that a negative
+    dst still lies in the io row) with one record of one block changed to
+    break *rule*. Returns (lit, recs, counts, block_size, use_history, the
+    changed block)."""
+    bs = 8 * KB
+    blocks = [make_compressible(bs), make_compressible(6000)]
+    hists = [make_compressible(1000)] * 2 if rule == "dst_negative" else None
+    lit, recs, counts, _, uh = pt_sd.parse_block_batch(
+        [np.asarray(lz4.compress_raw(b)) for b in blocks], bs, hists)
+    recs = recs.copy()
+    b = 0 if rule == "room" else 1
+    r = recs[b, : counts[b]]            # a view: changes land in recs
+    offset, mlen, dst = r[:, 0] & 0xFFFF, (r[:, 0] >> 16) & 0xFFFF, r[:, 1]
+    k = int(np.flatnonzero((mlen >= 2) & (dst >= 200))[0])
+    last = int(np.flatnonzero(mlen > 0)[-1])
+    if rule == "dst_negative":
+        r[0, 1] = -1
+    elif rule == "dst_past_cap":
+        r[last, 1] = bs + 1
+    elif rule == "dst_zero":
+        r[0, 1] = 0
+    elif rule == "offset0":
+        r[k, 0] = mlen[k] << 16
+    elif rule == "offset_past_dst":
+        r[0, 0] = (mlen[0] << 16) | (dst[0] + 1)
+    elif rule == "span":
+        assert dst[last] + 129 <= bs
+        r[last, 0] = (129 << 16) | dst[last]
+    elif rule == "room":
+        r[last, 1] = bs - mlen[last] + 1
+    elif rule == "overlap":
+        r[k, 0] = (mlen[k] << 16) | (mlen[k] - 1)
+    else:
+        r[[k - 1, k]] = r[[k, k - 1]]
+    return lit, recs, counts, bs, uh, b
+
+
+@pytest.mark.parametrize("rule", RULES)
+def test_conformance_mutation_routes_its_block_serially(rule):
+    """Each rule of the check, broken by one record of one block: exactly
+    that block takes the serial route, and the bytes stay the serial
+    plain version's."""
+    lit, recs, counts, bs, uh, b = _mutated(rule)
+    args = [torch.from_numpy(a) for a in (lit, recs, counts)]
+    got, stats = pt_sd.decode_blocks_split_grouped_plain(*args, bs, uh)
+    assert stats[:, 4].tolist() == [int(i == b) for i in range(2)]
+    assert torch.equal(got, pt_sd.decode_blocks_split_plain(*args, bs, uh))
+
+
+@pytest.mark.parametrize("tail,levels,text", [
+    ([(12, 4, 12)], 1, b"abcdefghabcdabcd"),    # source before the group
+    ([(10, 4, 12)], 1, b"abcdefghabcdcdef"),    # literals only
+    ([(4, 4, 12)], 2, b"abcdefghabcdabcd"),     # record 0's output
+    ([(6, 4, 12)], 2, b"abcdefghabcdghab"),     # part of it
+    ([(4, 4, 12), (4, 4, 16)], 3, b"abcdefghabcdabcdabcd"),   # a chain
+])
+def test_levels_pinned_on_a_hand_built_row(tail, levels, text):
+    """A 64-byte block whose literal image starts "abcdefgh"; record 0
+    copies 4 of its bytes to 8; the (offset, mlen, dst) records after it
+    set the level count."""
+    lit = np.zeros((1, 1024), np.uint8)
+    lit[0, :8] = np.frombuffer(b"abcdefgh", np.uint8)
+    recs = np.empty((1, 128, 2), np.int32)
+    recs[..., 0], recs[..., 1] = pt_sd.NOOP_W0, pt_sd.NOOP_W1
+    for i, (o, n, d) in enumerate([(8, 4, 8)] + tail):
+        recs[0, i] = (o | n << 16, d)
+    args = [torch.from_numpy(a) for a in
+            (lit, recs, np.array([1 + len(tail)], np.int32))]
+    got, stats = pt_sd.decode_blocks_split_grouped_plain(*args, 64)
+    assert bytes(got[0, : len(text)].tolist()) == text
+    assert torch.equal(got, pt_sd.decode_blocks_split_plain(*args, 64))
+    assert stats[0].tolist() == [1 + len(tail), 1, levels, levels, 0]
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(cuda):
-    """The kernel against its plain version on every batch above and on
-    256 KB blocks with a history (rows past the shared-memory limit);
+    """The kernel against its plain version on every batch above, every
+    conformance mutation and 256 KB blocks with a history (rows past the
+    shared-memory limit), its stats against the grouped rendition's;
     launches goes up by one per call."""
     blocks = [make_compressible(256 * KB), np.full(200_000, 5, np.uint8)]
     comps = [np.asarray(lz4.compress_raw(b)) for b in blocks]
     big = pt_sd.parse_block_batch(comps, 256 * KB, [make_compressible(W)] * 2)
     batches = [_batch(c)[:5] for c in ("sorted_blocks", "history", "garbage",
                                        "noop_identity")]
+    batches += [_mutated(r)[:5] for r in RULES]
     batches.append(big[:3] + (256 * KB, big[4]))
     for lit, recs, counts, bs, uh in batches:
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
                 for a in (lit, recs, counts)]
         want = pt_sd.decode_blocks_split_plain(*args, bs, uh)
+        _, want_stats = pt_sd.decode_blocks_split_grouped_plain(
+            *(a.cpu() for a in args), bs, uh)
         before = pt_sd.decode_blocks_split.launches
         got = pt_sd.decode_blocks_split(*args, bs, uh)
         assert pt_sd.decode_blocks_split.launches == before + 1
         torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=0)
+        assert torch.equal(pt_sd.decode_blocks_split.last_stats.cpu().long(),
+                           want_stats)
