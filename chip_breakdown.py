@@ -2,7 +2,7 @@
 """Layer breakdown of one frame on one GPU.
 
     python3 chip_breakdown.py [--mib 64] [--seed N]
-                              [--engine split|pallas|hybrid]
+                              [--engine split|pallas|hybrid|xla]
 
 Encodes bench.build_corpus(MiB, seed) as one FrameConfig() frame (4 MB
 linked blocks) with a content checksum, then decodes it, and times each
@@ -44,13 +44,32 @@ independent blocks with a content checksum, whose layers are
   lengths, joining rows, content xxh32.
 
 With ``--engine hybrid`` the frame is the engine="hybrid" one (64 KB
-independent blocks, content checksum; encode only, since hybrid decode is
-not ported): blocks to rows, H2D of the rows, chain builder (CUDA events),
-hybrid_encode walk (CUDA events), D2H of the rows and lengths, frame
-assembly with the content xxh32.
+independent blocks, content checksum; encode only: hybrid decode is the
+XLA decode, which ``--engine xla`` breaks down): blocks to rows, H2D of
+the rows, chain builder (CUDA events), hybrid_encode walk (CUDA events),
+D2H of the rows and lengths, frame assembly with the content xxh32.
+
+With ``--engine xla`` two frames go through engine="xla" (torch ops on the
+card, no kernel of their own): the corpus at 64 KB independent blocks with
+a content checksum ("encode", "decode") and the FrameConfig() frame with a
+content checksum ("encode_default", "decode_default"). Their layers:
+
+- encode: blocks to rows (host), H2D of the rows, encode_blocks_batch
+  (CUDA events), D2H of the rows and lengths, frame assembly with the
+  content xxh32;
+- decode: block index, comp rows + H2D, the block decode (64 KB:
+  decode_blocks_batch; default: decode_linked_scan, 16 blocks one after
+  another) by CUDA events, concat_blocks (CUDA events), D2H of the
+  output, content xxh32.
+
+The row passes' stages are timed by ``ops/decode_xla.stage_hook`` in a
+separate call (host clock, synchronised at each stage's end, summed over
+row chunks and blocks): encode words + sort + candidates, the 16-byte
+direct check, LCE + inheritance, orbit, serialization; decode parse,
+orbit, zone fill, chase, gather.
 
 Then one compress_frame and one decompress_frame (hybrid: compress_frame
-only) run under torch.profiler.
+only; xla: both frames) run under torch.profiler.
 The device busy share of a call is the union of its device activity
 intervals (kernels, memcpy, memset; user annotations left out) over the
 call's host wall time, so an interval the profiler reports under two
@@ -414,11 +433,133 @@ def _hybrid_layers(torch, pt, raw, frame, cfg, dev, layer, kernel):
         raise AssertionError("the layers' frame differs from compress_frame")
 
 
+def _xla_stages(torch, fn):
+    """fn() once with the XLA engine's stage hook. Returns ({stage: ms},
+    fn's result): host clock, synchronised at each stage's end, summed
+    over row chunks and blocks."""
+    from divortio_lz4_tpu_torch.ops import decode_xla
+    acc = defaultdict(float)
+    torch.cuda.synchronize()
+    last = [time.perf_counter()]
+
+    def hook(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        acc[name] += (now - last[0]) * 1e3
+        last[0] = now
+    decode_xla.stage_hook = hook
+    try:
+        out = fn()
+    finally:
+        decode_xla.stage_hook = None
+    return dict(acc), out
+
+
+def _xla_layers(torch, pt, raw, dev, layer, kernel, res):
+    """The engine="xla" layers of the 64 KB frame and the default frame."""
+    from divortio_lz4_tpu_torch.config import FrameConfig
+    from divortio_lz4_tpu_torch.constants import WINDOW_SIZE
+    from divortio_lz4_tpu_torch.ops.assemble_xla import concat_blocks
+    from divortio_lz4_tpu_torch.ops.decode_xla import decode_blocks_batch
+    from divortio_lz4_tpu_torch.ops.encode_xla import encode_blocks_batch
+    from divortio_lz4_tpu_torch.ops.linked_xla import decode_linked_scan
+    from divortio_lz4_tpu_torch.parallel.device import (
+        _assemble_frame_host, _fetch_all, _history_rows, parse_block_index,
+        stage_xla_blocks, stage_xla_chain)
+    from divortio_lz4_tpu_torch.xxh import xxhash32
+
+    frames = {}
+    for suffix, cfg in (("", FrameConfig(block_size=65536,
+                                         block_independence=True,
+                                         content_checksum=True)),
+                        ("_default", FrameConfig(content_checksum=True))):
+        enc, dec = "encode" + suffix, "decode" + suffix
+        res.setdefault(enc, {})
+        res.setdefault(dec, {})
+        bs = cfg.resolved_block_size
+        linked = not cfg.block_independence
+        frame = pt.compress_frame(raw, cfg, engine="xla", device=dev)
+        frames[suffix] = (cfg, frame)
+        layer(enc, "compress_frame",
+              lambda: pt.compress_frame(raw, cfg, engine="xla", device=dev))
+        work, lens, nb, hl, hs = layer(
+            enc, "blocks to rows (host)",
+            lambda: _history_rows(raw, bs, None, linked))
+        w = layer(enc, "H2D rows", lambda: torch.from_numpy(work).to(dev))
+        ln = torch.from_numpy(lens.astype(np.int64)).to(dev)
+        out = kernel(enc, "encode_blocks_batch",
+                     lambda: encode_blocks_batch(w, ln, hl, True, hs))
+        res[enc]["rounds"] = encode_blocks_batch.last_rounds
+        stages, _ = _xla_stages(
+            torch, lambda: encode_blocks_batch(w, ln, hl, True, hs))
+        res[enc]["stages (ms)"] = stages
+        for name, ms in stages.items():
+            print(f"{enc}:   stage {name}: {ms:.1f} ms")
+        print(f"{enc}: rounds {encode_blocks_batch.last_rounds}")
+        rows, ols = layer(enc, "D2H rows + lengths",
+                          lambda: _fetch_all(list(out)))
+        got = layer(enc, "assemble + content xxh32", lambda:
+                    _assemble_frame_host(raw, [rows[b, : ols[b]]
+                                               for b in range(nb)],
+                                         lens, nb, bs, cfg, None))
+        if got.tobytes() != np.asarray(frame).tobytes():
+            raise AssertionError("the layers' frame differs from "
+                                 "compress_frame")
+        del w, out
+
+        layer(dec, "decompress_frame",
+              lambda: pt.decompress_frame(frame, engine="xla", device=dev))
+        _, blocks, _ = layer(dec, "parse_block_index",
+                             lambda: parse_block_index(frame))
+        if linked:
+            comp, cl, st = layer(dec, "comp rows + H2D",
+                                 lambda: stage_xla_chain(frame, blocks, bs,
+                                                         dev))
+            init = torch.zeros(WINDOW_SIZE, dtype=torch.uint8, device=dev)
+
+            def block_decode():
+                return decode_linked_scan(comp, cl, st, init, bs)
+            name = "decode_linked_scan"
+        else:
+            comp, cl = layer(dec, "comp rows + H2D",
+                             lambda: stage_xla_blocks(frame, blocks, bs, dev))
+            hist = torch.zeros(WINDOW_SIZE, dtype=torch.uint8, device=dev)
+
+            def block_decode():
+                return decode_blocks_batch(comp, cl, hist, bs)
+            name = "decode_blocks_batch"
+        outs, out_lens = kernel(dec, name, block_decode)
+        res[dec]["rounds"] = (decode_linked_scan.last_syncs if linked
+                              else decode_blocks_batch.last_rounds)
+        stages, _ = _xla_stages(torch, block_decode)
+        res[dec]["stages (ms)"] = stages
+        for sname, ms in stages.items():
+            print(f"{dec}:   stage {sname}: {ms:.1f} ms")
+        print(f"{dec}: rounds (linked: host syncs) {res[dec]['rounds']}")
+        if linked or not any(f for _, _, f in blocks):
+            flat, total = kernel(dec, "concat_blocks", lambda: concat_blocks(
+                outs, out_lens, len(blocks) * bs))
+            out_np = layer(dec, "D2H output",
+                           lambda: flat[: int(total)].cpu().numpy())
+        else:       # stored blocks: the rows are joined on the host
+            rows, ols = layer(dec, "D2H rows + lengths",
+                              lambda: _fetch_all([outs, out_lens]))
+            out_np = layer(dec, "join", lambda: np.concatenate([
+                frame[o: o + n] if f else rows[i, : ols[i]]
+                for i, (o, n, f) in enumerate(blocks)]))
+        layer(dec, "content xxh32", lambda: xxhash32(out_np, 0))
+        if out_np.tobytes() != raw.tobytes():
+            raise AssertionError("the xla layers' output differs from the "
+                                 "corpus")
+        del comp, outs
+    return frames
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mib", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0x51E51A)
-    ap.add_argument("--engine", choices=("split", "pallas", "hybrid"),
+    ap.add_argument("--engine", choices=("split", "pallas", "hybrid", "xla"),
                     default="split")
     args = ap.parse_args()
 
@@ -442,7 +583,7 @@ def main() -> int:
     n = len(raw)
     engine = args.engine
     cfg = FrameConfig(content_checksum=True)
-    if engine != "split":
+    if engine not in ("split", "xla"):
         cfg = cfg.with_(block_size=65536, block_independence=True)
     frame = pt.compress_frame(raw, cfg, engine=engine, device=dev)  # warm-up
     if pt.decompress_frame(frame, engine="split" if engine == "hybrid"
@@ -475,7 +616,10 @@ def main() -> int:
               f"{statistics.median(kms):.1f} ms{note}")
         return out
 
-    if engine == "pallas":
+    frames = {}
+    if engine == "xla":
+        frames = _xla_layers(torch, pt, raw, dev, layer, kernel, res)
+    elif engine == "pallas":
         _pallas_layers(torch, pt, raw, frame, cfg, dev, layer, kernel, res)
     elif engine == "hybrid":
         _hybrid_layers(torch, pt, raw, frame, cfg, dev, layer, kernel)
@@ -489,7 +633,14 @@ def main() -> int:
     # -- device busy share -----------------------------------------------
     profiled = [("encode", lambda: pt.compress_frame(
                     raw, cfg, engine=engine, device=dev))]
-    if engine != "hybrid":
+    if engine == "xla":
+        profiled = [(side + suffix, fn) for suffix, (c, f) in frames.items()
+                    for side, fn in (
+                        ("encode", lambda c=c: pt.compress_frame(
+                            raw, c, engine="xla", device=dev)),
+                        ("decode", lambda f=f: pt.decompress_frame(
+                            f, engine="xla", device=dev)))]
+    elif engine != "hybrid":
         profiled.append(("decode", lambda: pt.decompress_frame(
             frame, engine=engine, device=dev)))
     if engine == "split":

@@ -68,7 +68,9 @@ which must be exact.
    the frame's first 64 rows with one of them random bytes (no history),
    each with its per-block stats
    (sequences, sequences the stitch walked again, matches copied in order,
-   serial blocks: 0, and exactly 1 with the random row);
+   serial blocks: 0, and exactly 1 with the random row); 1024 rows,
+   random ones between empty ones (as stored blocks are staged), decoded
+   8 times over memory filled with 0xFF: the empty rows come back zero;
    token_decode_linked on a linked 64 KB frame with a dictionary and
    stored blocks, an independent 4 MB-block frame and a linked frame of
    three 4 MB blocks, each also decoded to its plaintext, and that linked
@@ -105,6 +107,24 @@ which must be exact.
    and exactly 1 with the random row); decode_wire_blocks of the frame's
    blocks gives the corpus (launches counted there); the kernel timed on
    the frame's compressed blocks.
+11. engine="xla" on the card (the XLA engine: torch ops, no kernel of its
+   own; every step asserted to run on the card). The 64 MiB corpus at
+   64 KB independent blocks with a content checksum: compress_frame /
+   decompress_frame with engine="xla" exact (MB/s median of 3, size
+   against the engine="pallas" frame, the loops' rounds, calls), the frame
+   decoded exactly by "split" and "pallas", the split and pallas frames
+   decoded exactly by "xla" and "hybrid"; encode_blocks_batch,
+   decode_blocks_batch and the split engine's chain builder timed on the
+   frame's 1024 rows with CUDA events, each with its byte bound. The
+   64 MiB FrameConfig() frame encoded and decoded once with engine="xla"
+   (exact, MB/s, decoded exactly by "split"). The routes JAX sends to the
+   XLA engine, each a round trip on an 8 MiB slice: engine="pallas" with
+   a 32 KB dictionary and on linked 64 KB blocks, engine="hybrid" on
+   linked 64 KB blocks with block checksums (the host frame encoder, then
+   the linked XLA decode), assemble="device" (== the host-assembled
+   frame). On a 4 MiB slice the xla frames made on the card equal the
+   port's on the CPU, at 64 KB independent and at linked 64 KB. The peak
+   device memory, then a JSON line {"xla_engine": {...}}.
 
 Then a JSON line describing the kernels (with each one's bound: the bytes
 the function must move, without row padding or entries it never reads,
@@ -794,6 +814,27 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
         raise AssertionError(f"random bytes in row {h} changed another row")
     print(f"phase 8: token_decode hostile row: no fault, the other "
           f"{len(others)} rows exact; {hstats} {tag}")
+    # rows of length 0 (stored blocks are staged so) between random rows,
+    # more rows than the card runs at once, over memory filled with 0xFF:
+    # each empty row must come back a zero row, whatever the SM's shared
+    # memory held (the random rows' serial route leaves its flag set)
+    erng = np.random.default_rng(seed + 81)
+    erows = np.zeros((1024, 256), np.uint8)
+    elens = np.zeros(1024, np.int64)
+    elens[::2] = erng.integers(1, 192, 512)
+    for i in range(0, 1024, 2):
+        erows[i, :elens[i]] = erng.integers(0, 256, elens[i], dtype=np.uint8)
+    erows, elens = torch.from_numpy(erows).to(dev), \
+        torch.from_numpy(elens).to(dev)
+    ewant = decode_blocks_pallas_plain(erows, elens, B)
+    for trial in range(8):
+        poison = torch.full((1024, B), 255, dtype=torch.uint8, device=dev)
+        del poison   # the kernel's output takes this block back
+        egot = decode_blocks_pallas(erows, elens, B)
+        err = max(err, _compare(torch, f"token_decode, 512 empty rows "
+                                f"between random rows over 0xFF memory "
+                                f"(call {trial + 1} of 8)", egot, ewant,
+                                tag, 8))
     ms = _cuda_ms(torch, lambda: decode_blocks_pallas(main[0], main[1], B,
                                                       main[2]), 5)
     # wire bytes and lengths in, decoded bytes and lengths out
@@ -1238,6 +1279,214 @@ def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
     return res
 
 
+def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
+    """engine="xla" on the card (the module docstring's phase 11)."""
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.ops import decode_xla, encode_xla
+    from divortio_lz4_tpu_torch.ops import split_encode
+    from divortio_lz4_tpu_torch.ops.hybrid_encode import CHAIN_CHUNK_ROWS
+    from divortio_lz4_tpu_torch.parallel import device as pdev
+
+    # No fallback: every row pass of the engine must run on the card.
+    on_card = {}
+    passes = ((encode_xla, "_encode_rows", encode_xla._encode_rows),
+              (decode_xla, "_decode_rows", decode_xla._decode_rows))
+    for mod, name, fn in passes:
+        def checked(*a, _fn=fn, _name=name):
+            if a[0].device.type != dev.type:
+                raise AssertionError(f"{_name} ran on {a[0].device}")
+            on_card[_name] = on_card.get(_name, 0) + 1
+            return _fn(*a)
+        setattr(mod, name, checked)
+    calls = {"encode_blocks_batch": 0, "decode_blocks_batch": 0,
+             "build_dist_chains": 0}
+    for mod, name in ((pdev, "encode_blocks_batch"),
+                      (pdev, "decode_blocks_batch"),
+                      (split_encode, "build_dist_chains")):
+        def counted(*a, _fn=getattr(mod, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+    torch.cuda.reset_peak_memory_stats()
+    res = {"card": card}
+    n = len(corpus)
+    corpus_b = corpus.tobytes()
+    cfg = FrameConfig(block_size=65536, block_independence=True,
+                      content_checksum=True)
+
+    frame = pt.compress_frame(corpus, cfg, engine="xla", device=dev)
+    pt.decompress_frame(frame, engine="xla", device=dev)       # warm-up
+    for k in calls:
+        calls[k] = 0
+    t_enc, t_dec = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame = pt.compress_frame(corpus, cfg, engine="xla", device=dev)
+        t1 = time.perf_counter()
+        out = pt.decompress_frame(frame, engine="xla", device=dev)
+        t2 = time.perf_counter()
+        t_enc.append(t1 - t0)
+        t_dec.append(t2 - t1)
+        if out.tobytes() != corpus_b:
+            raise AssertionError("64 MiB xla round trip is not exact")
+    main_calls = dict(calls)
+    if main_calls["encode_blocks_batch"] != 3 \
+            or main_calls["decode_blocks_batch"] != 3:
+        raise AssertionError(f"the xla main path's calls: {main_calls}")
+    enc_rounds = dict(encode_xla.encode_blocks_batch.last_rounds)
+    dec_rounds = dict(decode_xla.decode_blocks_batch.last_rounds)
+    for engine in ("split", "pallas"):
+        _other_engine_exact(pt, frame, corpus, dev, engine,
+                            what="64 MiB xla frame")
+    calls["build_dist_chains"] = 0
+    split_frame = pt.compress_frame(corpus, cfg, device=dev)
+    main_calls["build_dist_chains"] = calls["build_dist_chains"]
+    for made_by, f in (("split", split_frame), ("pallas", ref_frame)):
+        for engine in ("xla", "hybrid"):
+            _other_engine_exact(pt, f, corpus, dev, engine,
+                                what=f"64 MiB {made_by} frame")
+    enc_s, dec_s = statistics.median(t_enc), statistics.median(t_dec)
+    res["frame_64k"] = {
+        "bytes": len(frame), "pallas_bytes": len(ref_frame),
+        "ratio_vs_pallas": len(frame) / len(ref_frame),
+        "encode_mb_s": n / enc_s / 1e6, "decode_mb_s": n / dec_s / 1e6,
+        "encode_s": t_enc, "decode_s": t_dec,
+        "encode_rounds": enc_rounds, "decode_rounds": dec_rounds}
+    print(f"phase 11: engine='xla' 64 MiB frame (64 KB independent, "
+          f"content checksum), {len(frame)} B, ratio vs the engine='pallas' "
+          f"frame {len(frame) / len(ref_frame):.4f}: round trip exact, "
+          f"'split' and 'pallas' decode it exactly, 'xla' and 'hybrid' "
+          f"decode the split and pallas frames exactly {tag}")
+    print(f"phase 11: engine='xla': encode {n / enc_s / 1e6:.1f} MB/s, "
+          f"decode {n / dec_s / 1e6:.1f} MB/s (median of 3; enc {t_enc}, "
+          f"dec {t_dec} s); encode rounds {enc_rounds}, decode rounds "
+          f"{dec_rounds} {tag}")
+
+    # the frame's rows, as the main path builds them
+    work, lens, nb, _, _ = pdev._history_rows(corpus, 65536, None, False)
+    d_work = torch.from_numpy(work).to(dev)
+    d_lens = torch.from_numpy(lens.astype(np.int64)).to(dev)
+    _, blocks, _ = pdev.parse_block_index(frame)
+    comp, clens = pdev.stage_xla_blocks(frame, blocks, 65536, dev)
+    hist = torch.zeros(65536, dtype=torch.uint8, device=dev)
+    enc_ms = _cuda_ms(torch, lambda: encode_xla.encode_blocks_batch(
+        d_work, d_lens, 0, True, 0), 3)
+    rows, rlens = encode_xla.encode_blocks_batch(d_work, d_lens, 0, True, 0)
+    dec_ms = _cuda_ms(torch, lambda: decode_xla.decode_blocks_batch(
+        comp, clens, hist, 65536), 3)
+    dec, dlens = decode_xla.decode_blocks_batch(comp, clens, hist, 65536)
+    chain_ms = _cuda_ms(torch, lambda: [
+        split_encode.build_dist_chains(d_work[i: i + CHAIN_CHUNK_ROWS],
+                                       d_lens[i: i + CHAIN_CHUNK_ROWS], 0, 0)
+        for i in range(0, nb, CHAIN_CHUNK_ROWS)], 3)
+    comp_bytes = int(clens.sum())
+    stored_bytes = sum(size for _, size, st in blocks if st)
+    res["rows"] = {
+        "encode_blocks_batch": {
+            "ms": enc_ms,
+            "calls_on_path": main_calls["encode_blocks_batch"] // 3,
+            "row_passes": -(-nb // max(
+                1, decode_xla.XLA_CHUNK_POSITIONS // 65536)),
+            # payload in, each row's stream out
+            "bound_ms": _bound_ms(n, int(rlens.sum()))},
+        "decode_blocks_batch": {
+            "ms": dec_ms,
+            "calls_on_path": main_calls["decode_blocks_batch"] // 3,
+            # compressed bytes in, decoded bytes out (stored blocks skip)
+            "bound_ms": _bound_ms(comp_bytes, n - stored_bytes)},
+        "build_dist_chains": {
+            "ms": chain_ms,
+            "calls_on_path": main_calls["build_dist_chains"],
+            # payload in, a u16 distance per position out
+            "bound_ms": _bound_ms(n, 2 * n)}}
+    if int(dlens.sum()) != n - stored_bytes:
+        raise AssertionError("decode_blocks_batch lost bytes")
+    print(f"phase 11: on the frame's {nb} rows (CUDA events, mean of 3): "
+          f"encode_blocks_batch {enc_ms:.3f} ms (bound "
+          f"{res['rows']['encode_blocks_batch']['bound_ms']:.4f}), "
+          f"decode_blocks_batch {dec_ms:.3f} ms (bound "
+          f"{res['rows']['decode_blocks_batch']['bound_ms']:.4f}), the split "
+          f"engine's chain builder {chain_ms:.3f} ms (bound "
+          f"{res['rows']['build_dist_chains']['bound_ms']:.4f}) {tag}")
+    del d_work, comp, rows, dec
+
+    # the default frame: 4 MB linked blocks
+    dcfg = FrameConfig()
+    t0 = time.perf_counter()
+    dframe = pt.compress_frame(corpus, dcfg, engine="xla", device=dev)
+    t1 = time.perf_counter()
+    out = pt.decompress_frame(dframe, engine="xla", device=dev)
+    t2 = time.perf_counter()
+    if out.tobytes() != corpus_b:
+        raise AssertionError("64 MiB default xla round trip is not exact")
+    _other_engine_exact(pt, dframe, corpus, dev, "split",
+                        what="64 MiB default xla frame")
+    from divortio_lz4_tpu_torch.ops.linked_xla import decode_linked_scan
+    res["default"] = {
+        "bytes": len(dframe), "encode_mb_s": n / (t1 - t0) / 1e6,
+        "decode_mb_s": n / (t2 - t1) / 1e6,
+        "encode_rounds": dict(encode_xla.encode_blocks_batch.last_rounds),
+        "decode_syncs": decode_linked_scan.last_syncs}
+    print(f"phase 11: engine='xla' default frame (4 MB linked) 64 MiB, "
+          f"{len(dframe)} B: exact, 'split' decodes it exactly; encode "
+          f"{n / (t1 - t0) / 1e6:.1f} MB/s, decode {n / (t2 - t1) / 1e6:.1f}"
+          f" MB/s (once each); encode rounds {res['default']['encode_rounds']}"
+          f", linked decode host syncs {decode_linked_scan.last_syncs} {tag}")
+
+    # the routes JAX sends to the XLA engine
+    part = corpus[: 8 * MIB]
+    d = np.array(corpus[3 * MIB: 3 * MIB + 32768])
+    linked = FrameConfig(block_size=65536)
+    routes = {
+        "pallas_dictionary": ("pallas", cfg, d, {}),
+        "pallas_linked": ("pallas", linked, None, {}),
+        "hybrid_linked_block_checksums": (
+            "hybrid", linked.with_(block_checksums=True), None, {}),
+        "xla_assemble_device": ("xla", cfg, None, {"assemble": "device"}),
+        "xla_linked_assemble_device": ("xla", linked, d,
+                                       {"assemble": "device"}),
+    }
+    res["routes"] = {}
+    for name, (engine, rcfg, rd, kw) in routes.items():
+        t0 = time.perf_counter()
+        f = pt.compress_frame(part, rcfg, dictionary=rd, engine=engine,
+                              device=dev, **kw)
+        t1 = time.perf_counter()
+        back = pt.decompress_frame(f, dictionary=rd, engine=engine,
+                                   device=dev)
+        t2 = time.perf_counter()
+        if back.tobytes() != part.tobytes():
+            raise AssertionError(f"route {name}: round trip differs")
+        if kw:
+            host = pt.compress_frame(part, rcfg, dictionary=rd,
+                                     engine=engine, device=dev)
+            if host.tobytes() != f.tobytes():
+                raise AssertionError(f"route {name}: device assembly != "
+                                     "host assembly")
+        res["routes"][name] = {"bytes": len(f), "encode_s": t1 - t0,
+                               "decode_s": t2 - t1}
+        print(f"phase 11: route {name} (8 MiB): {len(f)} B, round trip "
+              f"exact on engine={engine!r}{' (== host assembly)' if kw else ''}"
+              f"; encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s {tag}")
+
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / MIB
+    res["row_passes_on_card"] = on_card
+    for mod, name, fn in passes:
+        setattr(mod, name, fn)
+
+    # the card against the port's own CPU run
+    part = corpus[: 4 * MIB]
+    for name, ccfg in (("64k_independent", cfg), ("linked_64k", linked)):
+        on_gpu = pt.compress_frame(part, ccfg, engine="xla", device=dev)
+        on_cpu = pt.compress_frame(part, ccfg, engine="xla", device="cpu")
+        if on_gpu.tobytes() != on_cpu.tobytes():
+            raise AssertionError(f"xla {name}: card frame != CPU frame")
+        print(f"phase 11: xla {name} 4 MiB: the card's frame == the port's "
+              f"CPU frame ({len(on_gpu)} B) {tag}")
+    print(f"phase 11: peak device memory {res['peak_mib']:.0f} MiB {tag}")
+    print(json.dumps({"xla_engine": res}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0x51E51A)
@@ -1407,6 +1656,7 @@ def main() -> int:
                                    args.seed, tag)
     split = _phase10(torch, pt, dev, corpus, hybrid_frame, dict_frame, d,
                      args.seed, tag)
+    _phase11(torch, pt, dev, corpus, ref_frame, card, tag)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "divortio_lz4_tpu"))

@@ -2,21 +2,27 @@
 device frame codec.
 
 The JAX package ``divortio_lz4_tpu`` stays the reference; this package sits
-beside it and is held against it byte for byte. Three engines are ported:
+beside it and is held against it byte for byte. Every engine of the JAX
+device codec is ported, with every route it takes:
 
-- ``engine="split"`` (the default) on every frame configuration: 64 KB,
-  256 KB, 1 MB and 4 MB blocks, linked or independent, with or without a
-  dictionary, block checksums and a content checksum. ``FrameConfig()``,
-  the reference's default (4 MB linked blocks), works as is.
+- ``engine="split"`` (the port's default) on every frame configuration:
+  64 KB, 256 KB, 1 MB and 4 MB blocks, linked or independent, with or
+  without a dictionary, block checksums and a content checksum.
+  ``FrameConfig()``, the reference's default (4 MB linked blocks), works
+  as is.
 - ``engine="pallas"``: encode of independent frames without a dictionary
   through the reference encoder's own greedy scan (frames byte-identical
-  to the host encoder's), and decode of every frame by parsing LZ4 tokens
-  on the device.
-- ``engine="hybrid"``: encode only. Blocks up to 64 KB (independent,
-  linked or with a dictionary) go through ``build_chains`` and the
-  hybrid_encode walk kernel; bigger blocks through the split engine's
-  big-block route. Linked frames with block checksums raise
-  NotImplementedError, and so does hybrid decode.
+  to the host encoder's; linked frames and dictionaries go to the XLA
+  encoder, as in JAX), and decode of every frame by parsing LZ4 tokens on
+  the device.
+- ``engine="hybrid"``: blocks up to 64 KB encode through ``build_chains``
+  and the hybrid_encode walk kernel, bigger ones through the split
+  engine's big-block route; decode is the XLA decode, as in JAX.
+- ``engine="xla"`` (the JAX package's single-frame default): the
+  sort-based encoder and the two-phase decoder, torch ops on the device.
+
+Linked frames with block checksums encode on the host (``frame.py``) on
+every engine but split up to 64 KB, as in JAX.
 
   compress_frame, compress_frames       split: chain build on the device
                                         (torch ops) + host serialize (and
@@ -24,11 +30,13 @@ beside it and is held against it byte for byte. Three engines are ported:
                                         pallas: greedy_encode kernel + host
                                         frame assembly; hybrid: chain build
                                         + hybrid_encode kernel + host frame
-                                        assembly
+                                        assembly; xla: torch ops + host or
+                                        device assembly
   decompress_frame, decompress_frames   split: host record parse + one of
                                         three CUDA kernels (compact, wire,
                                         chain); pallas: token_decode or
-                                        token_decode_linked kernel
+                                        token_decode_linked kernel; xla and
+                                        hybrid: torch ops
   compress_frames, decompress_frames    every frame's device work queued,
                                         one device-to-host fetch per batch
 
@@ -36,8 +44,8 @@ Every entry point runs on the card (``device="cuda"``) unless the caller
 asks for the CPU (``device="cpu"``), where the kernels' plain PyTorch
 versions run; without a GPU, ``"cuda"`` raises RuntimeError. The package
 carries its own host layer (``config``, ``constants``, ``utils``, ``xxh``,
-and ``host``, the ctypes binding of ``csrc/host_kernels.cpp``, built with
-g++ at first use) and imports neither jax nor the JAX package.
+``frame`` and ``host``, the ctypes binding of ``csrc/host_kernels.cpp``,
+built with g++ at first use) and imports neither jax nor the JAX package.
 """
 
 from .config import DEFAULT_CONFIG, FrameConfig

@@ -8,6 +8,9 @@
 //   lz4t_parse_records2      (:896)  wire-direct record parse
 //   lz4t_chain_serialize16   (:1218) greedy select + serialize over a u16
 //   lz4t_chain_serialize16m  (:1225) chain, plain and with splice meta
+//   lz4t_warm_table          (:119)  dictionary warm-up of the hash table
+//   lz4t_compress_frame_body (:260)  the host frame encoder's block loop,
+//                                    over compress_block_core (:136)
 // Built with g++ at first use by divortio_lz4_tpu_torch/_build.py.
 
 #include <cstdint>
@@ -524,6 +527,181 @@ int64_t lz4t_chain_serialize16m(const uint8_t* work, int64_t hist_len,
                                 int64_t src_len, const uint16_t* dist16,
                                 uint8_t* out, int64_t* meta) {
   return chain_ser16_core(work, hist_len, src_len, dist16, out, meta);
+}
+
+// ---------------------------------------------------------------------------
+// Greedy block compress (the host frame encoder)
+// ---------------------------------------------------------------------------
+
+static const int HASH_SHIFT = 18;
+static const uint32_t HASH_MASK = 16383;
+static const uint32_t HASH_MULT = 2654435761u;
+static const int SKIP_TRIGGER = 6;
+
+static inline uint32_t lz4_hash(uint32_t seq) {
+  return (seq * HASH_MULT) >> HASH_SHIFT & HASH_MASK;
+}
+
+// Insert positions [0, limit-4] of buf into table (stored as pos+1).
+void lz4t_warm_table(int32_t* table, const uint8_t* buf, int64_t limit) {
+  for (int64_t i = 0; i + MIN_MATCH <= limit; i++) {
+    table[lz4_hash(read32(buf + i))] = (int32_t)(i + 1);
+  }
+}
+
+// Greedy LZ4 block compress (the reference encoder's parse: the hash table
+// stores pos+1, the skip stride grows every 64 misses, matches extend
+// forward to src_end-5). WILD copies literal runs as 16-byte chunks: the
+// caller gives >= 16 bytes of dst slack past the block bound and >= 16
+// readable bytes past the source end.
+static inline int64_t compress_block_core(const uint8_t* __restrict src,
+                                          uint8_t* __restrict dst,
+                                          int64_t src_start, int64_t src_len,
+                                          int32_t* __restrict table,
+                                          int64_t dst_off, const int WILD) {
+  int64_t s = src_start;
+  const int64_t s_end = src_start + src_len;
+  const int64_t mf_limit = s_end - MF_LIMIT;
+  const int64_t match_limit = s_end - LAST_LITERALS;
+  int64_t d = dst_off;
+  int64_t anchor = s;
+  int search_count = (1 << SKIP_TRIGGER) + 3;
+
+  while (s < mf_limit) {
+    uint32_t seq = read32(src + s);
+    uint32_t h = lz4_hash(seq);
+    int64_t m = (int64_t)table[h] - 1;
+    table[h] = (int32_t)(s + 1);
+
+    if (m < 0 || s == m || (s - m) >= 65536 || read32(src + m) != seq) {
+      s += search_count++ >> SKIP_TRIGGER;
+      continue;
+    }
+    search_count = (1 << SKIP_TRIGGER) + 3;
+
+    int64_t lit_len = s - anchor;
+    int64_t token_pos = d++;
+    if (lit_len >= 15) {
+      dst[token_pos] = 0xF0;
+      int64_t l = lit_len - 15;
+      while (l >= 255) { dst[d++] = 255; l -= 255; }
+      dst[d++] = (uint8_t)l;
+    } else {
+      dst[token_pos] = (uint8_t)(lit_len << 4);
+    }
+    if (lit_len > 0) {
+      if (WILD) {
+        uint8_t* dp = dst + d;
+        const uint8_t* sp2 = src + anchor;
+        int64_t l = lit_len;
+        do { std::memcpy(dp, sp2, 16); dp += 16; sp2 += 16; l -= 16;
+        } while (l > 0);
+      } else {
+        std::memcpy(dst + d, src + anchor, (size_t)lit_len);
+      }
+      d += lit_len;
+    }
+
+    int64_t sp = s + MIN_MATCH;
+    int64_t mp = m + MIN_MATCH;
+    while (sp + 8 <= match_limit) {
+      uint64_t a, b;
+      std::memcpy(&a, src + sp, 8);
+      std::memcpy(&b, src + mp, 8);
+      uint64_t diff = a ^ b;
+      if (diff) {
+        sp += __builtin_ctzll(diff) >> 3;
+        goto match_done;
+      }
+      sp += 8;
+      mp += 8;
+    }
+    while (sp < match_limit && src[sp] == src[mp]) { sp++; mp++; }
+  match_done:;
+    {
+      int64_t match_len = sp - s;
+      int64_t offset = s - m;
+      dst[d++] = (uint8_t)(offset & 0xFF);
+      dst[d++] = (uint8_t)((offset >> 8) & 0xFF);
+      int64_t code = match_len - MIN_MATCH;
+      if (code >= 15) {
+        dst[token_pos] |= 0x0F;
+        int64_t l = code - 15;
+        while (l >= 255) { dst[d++] = 255; l -= 255; }
+        dst[d++] = (uint8_t)l;
+      } else {
+        dst[token_pos] |= (uint8_t)code;
+      }
+      s = sp;
+      anchor = sp;
+    }
+  }
+
+  {
+    int64_t lit_len = s_end - anchor;
+    int64_t token_pos = d++;
+    if (lit_len >= 15) {
+      dst[token_pos] = 0xF0;
+      int64_t l = lit_len - 15;
+      while (l >= 255) { dst[d++] = 255; l -= 255; }
+      dst[d++] = (uint8_t)l;
+    } else {
+      dst[token_pos] = (uint8_t)(lit_len << 4);
+    }
+    if (lit_len > 0) {
+      std::memcpy(dst + d, src + anchor, (size_t)lit_len);
+      d += lit_len;
+    }
+  }
+  return d - dst_off;
+}
+
+// A whole frame body in one call: per block the size word, the block or
+// its stored fallback, the optional block checksum, the table cleared
+// between independent blocks; then the EndMark. src spans [0, total_end),
+// compression starting at input_start (a nonzero start is a dictionary
+// prefix, warmed first by lz4t_warm_table). dst holds the worst-case body
+// bound plus 16 bytes of slack. Returns bytes written at dst + dst_off.
+int64_t lz4t_compress_frame_body(const uint8_t* __restrict src,
+                                 int64_t input_start, int64_t total_end,
+                                 uint8_t* __restrict dst, int64_t dst_off,
+                                 int64_t block_size,
+                                 int32_t* __restrict table,
+                                 int32_t independent,
+                                 int32_t block_checksums) {
+  int64_t pos = dst_off;
+  int64_t src_pos = input_start;
+  while (src_pos < total_end) {
+    int64_t end = src_pos + block_size;
+    if (end > total_end) end = total_end;
+    int64_t bsize = end - src_pos;
+    int64_t size_pos = pos;
+    pos += 4;
+    int64_t comp = compress_block_core(src, dst, src_pos, bsize, table,
+                                       pos, 1);
+    if (comp > 0 && comp < bsize) {
+      uint32_t w = (uint32_t)comp;
+      std::memcpy(dst + size_pos, &w, 4);
+      pos += comp;
+    } else {
+      uint32_t w = (uint32_t)bsize | 0x80000000u;
+      std::memcpy(dst + size_pos, &w, 4);
+      std::memcpy(dst + pos, src + src_pos, (size_t)bsize);
+      pos += bsize;
+    }
+    if (block_checksums) {
+      uint32_t ck = lz4t_xxhash32(dst + size_pos + 4,
+                                  pos - (size_pos + 4), 0);
+      std::memcpy(dst + pos, &ck, 4);
+      pos += 4;
+    }
+    if (independent) std::memset(table, 0, (HASH_MASK + 1) * sizeof(int32_t));
+    src_pos = end;
+  }
+  uint32_t zero = 0;
+  std::memcpy(dst + pos, &zero, 4);  // EndMark
+  pos += 4;
+  return pos - dst_off;
 }
 
 }  // extern "C"

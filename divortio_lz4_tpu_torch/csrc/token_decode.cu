@@ -492,6 +492,11 @@ token_heads_kernel(Blocks bk, uint32_t* __restrict__ mlens) {
   uint32_t* offs = bk.list(b, 0);
   const uint32_t n_seq = meta[kNSeq];
   if (t == 0) bad = 0;
+  // every thread reads bad after the loop, which an empty row (a stored
+  // block is staged with length 0) skips: without this barrier a thread
+  // could read what the SM's shared memory last held, leave its part of
+  // the row's zero tail unwritten and so leave torch.empty's bytes there
+  __syncthreads();
   int64_t o = base;
   for (uint32_t k0 = 0; k0 < n_seq; k0 += kHeadThreads) {
     const uint32_t k = k0 + t;

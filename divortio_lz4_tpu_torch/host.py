@@ -3,7 +3,8 @@
 The wrappers and the error table are copies of
 ``divortio_lz4_tpu/native/__init__.py`` (``xxhash32_native``,
 ``scan_pieces_native``, ``parse_records_native``, ``parse_records2_native``,
-``chain_serialize16_native``, ``chain_serialize16_meta_native``). The
+``chain_serialize16_native``, ``chain_serialize16_meta_native``,
+``warm_table_native``, ``compress_frame_body_native``). The
 library is built with g++ at its first use (``_build.py``), never at
 import. Every function validates its buffers in Python before passing
 pointers, and raises "LZ4: ..." ValueErrors on the C error codes.
@@ -46,6 +47,11 @@ def _lib() -> ctypes.CDLL:
     lib.lz4t_chain_serialize16m.restype = i64
     lib.lz4t_chain_serialize16m.argtypes = [p, i64, i64, p, p,
                                             ctypes.POINTER(i64)]
+    lib.lz4t_warm_table.restype = None
+    lib.lz4t_warm_table.argtypes = [p, p, i64]
+    lib.lz4t_compress_frame_body.restype = i64
+    lib.lz4t_compress_frame_body.argtypes = [p, i64, i64, p, i64, i64, p,
+                                             ctypes.c_int32, ctypes.c_int32]
     return lib
 
 
@@ -163,3 +169,44 @@ def chain_serialize16_meta_native(work: np.ndarray, hist_len: int,
     n = int(_lib().lz4t_chain_serialize16m(
         _ptr(work), hist_len, src_len, _ptr(dist16), _ptr(out), meta))
     return n, np.array(meta[:], np.int64)
+
+
+def warm_table_native(table: np.ndarray, buf: np.ndarray, limit: int) -> None:
+    """Insert positions [0, limit - 4] of *buf* into the greedy encoder's
+    hash table (i32[16384], entries pos + 1): a dictionary's warm-up."""
+    if table.dtype != np.int32 or not table.flags.c_contiguous \
+            or len(table) != 1 << 14:
+        raise ValueError("table must be a contiguous int32[16384]")
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    if limit > len(buf):
+        raise ValueError(f"limit {limit} > buffer length {len(buf)}")
+    _lib().lz4t_warm_table(_ptr(table), _ptr(buf), limit)
+
+
+def compress_frame_body_native(working: np.ndarray, input_start: int,
+                               total_end: int, out: np.ndarray, dst_off: int,
+                               block_size: int, table: np.ndarray,
+                               independent: bool,
+                               block_checksums: bool) -> int:
+    """Every block of a frame in one native call (see
+    lz4t_compress_frame_body): size words, greedy blocks or their stored
+    fallback, block checksums, the EndMark. *working* = [dictionary |
+    payload] with >= 16 readable bytes past total_end (the literal copies
+    run in 16-byte chunks); *out* holds the body's worst case plus 16 bytes
+    past dst_off. Returns bytes written."""
+    if working.dtype != np.uint8 or not working.flags.c_contiguous \
+            or len(working) < total_end + 16:
+        raise ValueError("working must be contiguous uint8 with 16 readable "
+                         "bytes past total_end")
+    if table.dtype != np.int32 or not table.flags.c_contiguous \
+            or len(table) != 1 << 14:
+        raise ValueError("table must be a contiguous int32[16384]")
+    n = total_end - input_start
+    nblocks = max(1, -(-n // block_size))
+    need = nblocks * 8 + n + n // 255 + 16 * nblocks + 4 + 16
+    if out.dtype != np.uint8 or not out.flags.c_contiguous \
+            or len(out) - dst_off < need:
+        raise ValueError(f"out needs {need} bytes past dst_off")
+    return int(_lib().lz4t_compress_frame_body(
+        _ptr(working), input_start, total_end, _ptr(out), dst_off,
+        block_size, _ptr(table), int(independent), int(block_checksums)))

@@ -1,8 +1,11 @@
-"""Frame codec on a torch device: the split, pallas and hybrid engines.
+"""Frame codec on a torch device: the split, pallas, hybrid and xla
+engines.
 
-Port of the ``engine="split"``, ``engine="pallas"`` and ``engine="hybrid"``
-paths of ``divortio_lz4_tpu/parallel/device.py``
-(``device_compress_frame(s)``, ``device_decompress_frame(s)``).
+Port of ``divortio_lz4_tpu/parallel/device.py``
+(``device_compress_frame(s)``, ``device_decompress_frame(s)``), every
+engine and every route of it. The port's default engine is "split" (the
+fastest on the card and what the benchmarks' round trip runs); the JAX
+package's single-frame default is "xla".
 
 Split engine:
 
@@ -26,7 +29,7 @@ verdicts match):
 - Encode: independent frames without a dictionary, at every block size,
   through the greedy kernel (``ops/greedy_encode``, reference-identical
   bytes) and ``_assemble_frame_host``. Linked frames and dictionaries go
-  to the XLA encoder in JAX, which is not ported: they raise.
+  to the XLA encoder, as in JAX.
 - Decode: independent frames whose rows fit the TPU kernel's VMEM budget
   (``_pallas_indep_fits``) -> token decode per block
   (``ops/token_decode.decode_blocks_pallas``); other independent frames
@@ -35,26 +38,36 @@ verdicts match):
   kernel, one chain per independent block or one for the linked frame;
   linked frames of blocks up to 256 KB -> one chain, no scan.
 
-Hybrid engine, encode only (the JAX routes of ``device.py:137-151,
-152-218, 721-792``): blocks of up to 64 KB go through
+Hybrid engine (the JAX routes of ``device.py:137-151, 152-218,
+721-792``): blocks of up to 64 KB encode through
 ``ops/hybrid_encode.encode_blocks_hybrid`` (exact-word packed chains, then
 the walk kernel), as ``[history | payload]`` rows where a dictionary or a
-linked frame gives history, and ``_assemble_frame_host`` (the JAX
-``_host_assemble``: an empty payload makes a frame with no block). Linked
-frames with block checksums go to the JAX package's host frame encoder,
-which the port does not have: they raise. Bigger blocks take the split
-engine's big-block route, as JAX's ``compress_frame_big`` does. Hybrid
-frames decode with either decode engine; JAX decodes engine="hybrid" with
-its XLA decoder, which is not ported, so that engine raises on decode.
+linked frame gives history; bigger blocks take the split engine's
+big-block route, as JAX's ``compress_frame_big`` does. Hybrid decode is
+the XLA decode, as JAX's fall-through (``device.py:639-647``) makes it.
+
+XLA engine: the sort-based encoder (``ops/encode_xla``) over the same
+rows, and the two-phase decoder (``ops/decode_xla``; linked frames block
+after block, ``ops/linked_xla``), torch ops on the device.
+``assemble="device"`` builds the block section with
+``ops/assemble_xla.assemble_blocks``; independent frames without stored
+blocks are joined on the device with ``concat_blocks``.
+
+Linked frames with block checksums encode on the host
+(``frame.compress_frame``) on every engine but split up to 64 KB, as in
+JAX (``device.py:736-740``). ``_encode_route`` holds the whole encode
+routing. Row-encoded frames are assembled on the host as JAX's
+``_host_assemble`` does (an empty payload makes a frame with no block).
 
 ``compress_frames`` / ``decompress_frames`` queue every frame's device
 work first, whatever its configuration, fetch all of it with one
 device-to-host copy, then finish each frame on the host. The single-frame
-entry points are the one-frame case.
+entry points are the one-frame case. The XLA engine's loops read their
+exit tests on the host, so its work is not queued behind the others'.
 
 The frame host helpers below are copies of the JAX module's (it imports
 jax at module level); their semantics and "LZ4: ..." errors are unchanged.
-Engines not ported raise NotImplementedError; nothing falls back to
+An engine name JAX does not have raises ValueError; nothing falls back to
 another codec.
 """
 
@@ -79,9 +92,15 @@ from ..constants import (
     WINDOW_SIZE,
 )
 from .._device import resolve_device
+from ..constants import block_bound
+from ..frame import compress_frame as compress_frame_host
+from ..ops.assemble_xla import assemble_blocks, concat_blocks
 from ..ops.compact_decode import decode_blocks_compact
+from ..ops.decode_xla import decode_blocks_batch
+from ..ops.encode_xla import encode_blocks_batch
 from ..ops.greedy_encode import encode_blocks_pallas
 from ..ops.hybrid_encode import encode_blocks_hybrid
+from ..ops.linked_xla import decode_linked_scan
 from ..ops.split_decode import from_reference_records, parse_wire_raw
 from ..ops.split_encode import chain_select_serialize, encode_blocks_chain
 from ..ops.token_decode import (TokenChains, decode_blocks_pallas,
@@ -98,9 +117,9 @@ SPLIT_MAX_BS = 65536
 # Largest independent block the padded wire kernel decodes
 # (device.py:_SPLIT_MAX_BS); bigger ones decode as chains.
 WIRE_MAX_BS = 262144
-# Engines the port runs (ROADMAP.md queue 1 item 9 lists the others).
-ENCODE_ENGINES = ("split", "pallas", "hybrid")
-DECODE_ENGINES = ("split", "pallas")
+# The JAX package's engines, every one ported.
+ENCODE_ENGINES = ("split", "pallas", "hybrid", "xla")
+DECODE_ENGINES = ("split", "pallas", "xla", "hybrid")
 # The pallas decode router's constants (pallas_decode.py SLACK and
 # VMEM_BUDGET, device.py:_PALLAS_LINKED_MAX_BS): they decide which route a
 # frame takes, and so which errors it can raise.
@@ -268,10 +287,9 @@ def parse_block_index(buf: np.ndarray, verify_checksum: bool = True):
 
 def _require_engine(engine: str, engines: tuple, what: str) -> None:
     if engine not in engines:
-        raise NotImplementedError(
-            f"{what} with engine={engine!r} is not ported; "
-            f"{', '.join(repr(e) for e in engines)} are (ROADMAP.md queue 1 "
-            "item 9: other engines)")
+        raise ValueError(
+            f"{what} has no engine={engine!r}; "
+            f"{', '.join(repr(e) for e in engines)} are the engines")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -402,18 +420,74 @@ def _queue_compress(raw, config: FrameConfig, window, dict_id, device
     return [st.chains], finish
 
 
-def _queue_compress_pallas(raw, config: FrameConfig, device
-                           ) -> tuple[list, Callable]:
-    """Queue one independent frame's greedy encode on *device* (the
-    engine="pallas" branch of device_compress_frame, ``device.py:161``:
-    ``_blocks_to_batch``, the kernel, ``_host_assemble``). Returns (device
-    tensors still queued, finish) as _queue_compress does."""
+def _encode_route(engine: str, config: FrameConfig, dictionary,
+                  assemble: str) -> str:
+    """The encoder the JAX ``device_compress_frame`` runs for this call
+    (``device.py:137-218, 733-740``): "split" (the chain build, big blocks
+    in 64 KB segments), "host" (the host frame encoder), or the row
+    encoder "pallas", "hybrid" or "xla"."""
+    small = config.resolved_block_size <= SPLIT_MAX_BS
+    if engine == "split":
+        if small:
+            return "split"
+        engine = "hybrid"
+    if engine == "hybrid" and not small:
+        if assemble == "host":
+            return "split"          # compress_frame_big
+        engine = "xla"              # device assembly: the XLA encoder
+    if not config.block_independence:
+        if config.block_checksums:
+            return "host"
+        return "hybrid" if engine == "hybrid" else "xla"
+    if engine == "pallas" and dictionary is None:
+        return "pallas"
+    return "hybrid" if engine == "hybrid" else "xla"
+
+
+def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
+                         encoder: str, use_fingerprints: bool,
+                         assemble: str) -> tuple[list, Callable]:
+    """Queue one frame's row encode on *device*: the greedy kernel
+    (``engine="pallas"``, rows without history), the hybrid walk or the
+    XLA encoder over ``_history_rows``' rows, then host assembly
+    (``_host_assemble``) or, with ``assemble="device"``, ``assemble_blocks``
+    as JAX does (``device.py:196-215, 778-788``: linked frames always,
+    independent ones without block checksums and with a payload). Returns
+    (device tensors, finish) as _queue_compress does."""
     bs = config.resolved_block_size
-    work, lens, nblocks = _blocks_to_batch(raw, bs)
-    out, out_lens = encode_blocks_pallas(
-        _put(work, device), _put(lens.astype(np.int64), device), bs)
-    return [out, out_lens], _finish_rows(raw, lens, nblocks, bs, config,
-                                         None)
+    linked = not config.block_independence
+    if encoder == "pallas":
+        work, lens, nblocks = _blocks_to_batch(raw, bs)
+        hist_len, hist_start = 0, 0
+    else:
+        work, lens, nblocks, hist_len, hist_start = _history_rows(
+            raw, bs, window, linked)
+    d_work = _put(work, device)
+    d_lens = _put(lens.astype(np.int64), device)
+    if encoder == "pallas":
+        out, out_lens = encode_blocks_pallas(d_work, d_lens, bs)
+    elif encoder == "hybrid":
+        out, out_lens, _ = encode_blocks_hybrid(d_work, d_lens, bs, hist_len,
+                                                hist_start)
+    else:
+        out, out_lens = encode_blocks_batch(d_work, d_lens, hist_len,
+                                            use_fingerprints, hist_start)
+    if assemble != "device" or not (
+            linked or (not config.block_checksums and len(raw) > 0)):
+        return [out, out_lens], _finish_rows(raw, lens, nblocks, bs, config,
+                                             dict_id)
+    body, total = assemble_blocks(out, out_lens, d_work[:, hist_len:],
+                                  d_lens, nblocks * (4 + bs) + 4)
+    header = _frame_header_bytes(config, len(raw), dict_id)
+
+    def finish(fetched):
+        parts = [header, fetched[0]]
+        if config.content_checksum:
+            ck = np.empty(4, np.uint8)
+            write_u32le(ck, 0, xxhash32(raw, 0))
+            parts.append(ck)
+        return np.concatenate(parts)
+    return [body[: int(total)]], finish
 
 
 def _finish_rows(raw, lens, nblocks, bs, config, dict_id) -> Callable:
@@ -427,29 +501,6 @@ def _finish_rows(raw, lens, nblocks, bs, config, dict_id) -> Callable:
         return _assemble_frame_host(raw, comps, lens, nb, bs, config,
                                     dict_id)
     return finish
-
-
-def _queue_compress_hybrid(raw, config: FrameConfig, window, dict_id,
-                           device) -> tuple[list, Callable]:
-    """Queue one frame's hybrid encode on *device* (device_compress_frame
-    with engine="hybrid"). Returns (device tensors still queued, finish) as
-    _queue_compress does."""
-    bs = config.resolved_block_size
-    if bs > SPLIT_MAX_BS:
-        # compress_frame_big: the split engine's big-block route
-        return _queue_compress(raw, config, window, dict_id, device)
-    if not config.block_independence and config.block_checksums:
-        raise NotImplementedError(
-            "engine='hybrid' linked frames with block checksums go to the "
-            "JAX package's host frame encoder (divortio_lz4_tpu.frame."
-            "compress_frame, device.py:736-740), which is not ported")
-    work, lens, nblocks, hist_len, hist_start = _history_rows(
-        raw, bs, window, not config.block_independence)
-    out, out_lens, _ = encode_blocks_hybrid(
-        _put(work, device), _put(lens.astype(np.int64), device), bs,
-        hist_len, hist_start)
-    return [out, out_lens], _finish_rows(raw, lens, nblocks, bs, config,
-                                         dict_id)
 
 
 _NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16,
@@ -482,36 +533,51 @@ def _fetch_all(tensors: list) -> list:
 
 def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
                     dictionary=None, engine: str = "split", *,
-                    device="cuda") -> list:
+                    use_fingerprints: Optional[bool] = None,
+                    assemble: str = "host", device="cuda") -> list:
     """Encode N payloads into N frames with every frame's device work in
     flight before one fetch per batch. Frames are byte-identical to the
-    JAX package's ``device_compress_frame`` with the same *engine*:
-    "split" takes every configuration; "pallas" (the reference encoder's
-    own greedy scan, byte-identical to ``divortio_lz4_tpu.compress``)
-    takes independent frames without a dictionary and raises
-    NotImplementedError on the rest, which JAX sends to its XLA encoder;
-    "hybrid" takes every configuration but linked frames with block
-    checksums, which JAX sends to its host frame encoder.
-    *device* is "cuda" unless the caller asks for the CPU."""
+    JAX package's ``device_compress_frame`` with the same *engine*,
+    *use_fingerprints* and *assemble*, routed as it routes them:
+
+    - "split" (the port's default; JAX's single-frame default is "xla"):
+      every configuration through the chain build and the host serializer.
+    - "pallas": independent frames without a dictionary through the
+      reference encoder's greedy scan (byte-identical to
+      ``divortio_lz4_tpu.compress``); linked frames and dictionaries go to
+      the XLA encoder, as in JAX.
+    - "hybrid": blocks up to 64 KB through the hybrid walk, bigger ones
+      through the split engine's big-block route.
+    - "xla": the sort-based data-parallel encoder (``ops/encode_xla``,
+      torch ops on the device); *use_fingerprints* (default
+      ``config.favor_ratio``) lets its matches grow past 16 bytes.
+
+    Linked frames with block checksums go to the host frame encoder
+    (``frame.compress_frame``) on every engine but "split" with blocks up
+    to 64 KB. ``assemble="device"`` builds the block section on the
+    device (``ops/assemble_xla``) on the row encoders, and sends
+    "split"/"hybrid" frames of bigger blocks to the XLA encoder, as JAX
+    does. *device* is "cuda" unless the caller asks for the CPU."""
     dev = resolve_device(device)
     _require_engine(engine, ENCODE_ENGINES, "encode")
-    if engine == "pallas" and (dictionary is not None
-                               or not config.block_independence):
-        raise NotImplementedError(
-            "engine='pallas' encodes independent frames without a "
-            "dictionary; the JAX package sends linked frames and "
-            "dictionaries to its XLA encoder, which is not ported "
-            "(ROADMAP.md queue 1 item 9: other engines)")
+    if assemble not in ("host", "device"):
+        raise ValueError(f"assemble={assemble!r}: 'host' or 'device'")
+    if use_fingerprints is None:
+        use_fingerprints = config.favor_ratio
+    route = _encode_route(engine, config, dictionary, assemble)
     window, dict_id = _dict_window(dictionary)
-    if engine == "pallas":
-        queued = [_queue_compress_pallas(ensure_buffer(d), config, dev)
-                  for d in datas]
-    elif engine == "hybrid":
-        queued = [_queue_compress_hybrid(ensure_buffer(d), config, window,
-                                         dict_id, dev) for d in datas]
-    else:
-        queued = [_queue_compress(ensure_buffer(d), config, window, dict_id,
-                                  dev) for d in datas]
+    queued = []
+    for d in datas:
+        raw = ensure_buffer(d)
+        if route == "split":
+            queued.append(_queue_compress(raw, config, window, dict_id, dev))
+        elif route == "host":
+            queued.append(([], lambda f, raw=raw: compress_frame_host(
+                raw, dictionary, config)))
+        else:
+            queued.append(_queue_compress_rows(raw, config, window, dict_id,
+                                               dev, route, use_fingerprints,
+                                               assemble))
     fetched = iter(_fetch_all([t for tensors, _ in queued
                                for t in tensors]))
     return [finish([next(fetched) for _ in tensors])
@@ -520,11 +586,13 @@ def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
 
 def compress_frame(data, config: FrameConfig = DEFAULT_CONFIG,
                    dictionary=None, engine: str = "split", *,
-                   device="cuda") -> np.ndarray:
+                   use_fingerprints: Optional[bool] = None,
+                   assemble: str = "host", device="cuda") -> np.ndarray:
     """Compress *data* into one LZ4 frame on *device* (see
     compress_frames)."""
     return compress_frames([data], config, dictionary, engine,
-                           device=device)[0]
+                           use_fingerprints=use_fingerprints,
+                           assemble=assemble, device=device)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -695,6 +763,79 @@ def _decode_chains_pallas(buf, blocks, header, window, device, scan: bool):
     return [out, out_lens], join
 
 
+def stage_xla_blocks(buf, blocks, bs, device):
+    """The inputs of decode_blocks_batch for an independent frame's
+    blocks, on *device* (the JAX ``_decode_independent``): (comp u8[nb,
+    m_cap], lens i64[nb]), m_cap the pow2 bucket of the widest compressed
+    block (at most block_bound(bs)); stored blocks get length 0."""
+    nb = len(blocks)
+    max_comp = max((size for _, size, stored in blocks if not stored),
+                   default=1)
+    comp = np.zeros((nb, min(_bucket_pow2(max_comp), block_bound(bs))),
+                    np.uint8)
+    lens = np.zeros(nb, np.int64)
+    for i, (off, size, stored) in enumerate(blocks):
+        if not stored:
+            comp[i, :size] = buf[off: off + size]
+            lens[i] = size
+    return _put(comp, device), _put(lens, device)
+
+
+def _decode_independent_xla(buf, blocks, bs, window, device):
+    """Queue the XLA decode of an independent frame (the JAX
+    ``_decode_independent``, rows from stage_xla_blocks); without stored
+    blocks the rows are joined on the device (``concat_blocks``). Returns
+    (device tensors, join)."""
+    nb = len(blocks)
+    comp, lens = stage_xla_blocks(buf, blocks, bs, device)
+    hist = _seed_window(window, device)
+    if hist is None:
+        hist = torch.zeros(WINDOW_SIZE, dtype=torch.uint8, device=device)
+    out, out_lens = decode_blocks_batch(comp, lens, hist, bs)
+    if not any(stored for _, _, stored in blocks):
+        flat, total = concat_blocks(out, out_lens, nb * bs)
+        return [flat[: int(total)]], lambda f: f[0]
+
+    def join(fetched):
+        rows, ols = fetched
+        return np.concatenate([
+            buf[off: off + size] if stored else rows[i, : int(ols[i])]
+            for i, (off, size, stored) in enumerate(blocks)])
+    return [out, out_lens], join
+
+
+def stage_xla_chain(buf, blocks, bs, device):
+    """The inputs of decode_linked_scan for a linked frame (the JAX
+    ``_decode_linked``): (comp u8[nb, m_cap] on *device*, lens i64[nb] on
+    *device*, stored i64[nb] on the host), every block a row, stored ones
+    too, m_cap the pow2 bucket of the widest block."""
+    nb = len(blocks)
+    max_comp = max(size for _, size, _ in blocks)
+    comp = np.zeros((nb, min(_bucket_pow2(max_comp), block_bound(bs))),
+                    np.uint8)
+    lens = np.zeros(nb, np.int64)
+    stored = np.zeros(nb, np.int64)
+    for i, (off, size, st) in enumerate(blocks):
+        comp[i, :size] = buf[off: off + size]
+        lens[i] = size
+        stored[i] = st
+    return _put(comp, device), _put(lens, device), torch.from_numpy(stored)
+
+
+def _decode_linked_xla(buf, blocks, bs, window, device):
+    """Queue the XLA decode of a linked frame (the JAX ``_decode_linked``):
+    the rows of stage_xla_chain decoded in order by ``decode_linked_scan``
+    against the carried window, then joined on the device. Returns (device
+    tensors, join)."""
+    init = _seed_window(window, device)
+    if init is None:
+        init = torch.zeros(WINDOW_SIZE, dtype=torch.uint8, device=device)
+    outs, out_lens = decode_linked_scan(
+        *stage_xla_chain(buf, blocks, bs, device), init, bs)
+    flat, total = concat_blocks(outs, out_lens, len(blocks) * bs)
+    return [flat[: int(total)]], lambda f: f[0]
+
+
 def _stage_frame(buf, verify_checksum, window, dict_id, device,
                  engine) -> _DecodeState:
     """Header, dictionary and block-checksum checks, then queue the decode
@@ -713,6 +854,11 @@ def _stage_frame(buf, verify_checksum, window, dict_id, device,
                 raise ValueError("LZ4: Block Checksum Error")
     if not blocks:
         tensors, join = [], lambda f: np.empty(0, dtype=np.uint8)
+    elif engine in ("xla", "hybrid") and header["independent"]:
+        tensors, join = _decode_independent_xla(buf, blocks, bs, window,
+                                                device)
+    elif engine in ("xla", "hybrid"):
+        tensors, join = _decode_linked_xla(buf, blocks, bs, window, device)
     elif engine == "pallas" and header["independent"]:
         if _pallas_indep_fits(blocks, bs, window):
             tensors, join = _decode_independent_pallas(buf, blocks, bs,
@@ -752,9 +898,14 @@ def decompress_frames(frames, verify_checksum: bool = True,
                       device="cuda") -> list:
     """Decode N frames with every frame's kernel queued before one fetch
     per batch. The bytes, or the "LZ4: ..." error, are the JAX package's
-    ``device_decompress_frame`` with the same *engine* ("split" or
-    "pallas"). A frame with a dictID requires *dictionary* and verifies its
-    id. *device* is "cuda" unless the caller asks for the CPU."""
+    ``device_decompress_frame`` with the same *engine*: "split" (the
+    port's default; JAX's is "xla"), "pallas", or "xla" and "hybrid",
+    which both take the XLA decoder (``ops/decode_xla``, torch ops on the
+    device; ``ops/linked_xla`` for linked frames), as JAX's fall-through
+    does. The XLA decoder does not diagnose a broken block: it gives JAX's
+    clipped bytes, and only a checksum catches them. A frame with a dictID
+    requires *dictionary* and verifies its id. *device* is "cuda" unless
+    the caller asks for the CPU."""
     dev = resolve_device(device)
     _require_engine(engine, DECODE_ENGINES, "decode")
     window, dict_id = _dict_window(dictionary)

@@ -21,6 +21,18 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Torch's CPU ops on one thread for the test. The port's XLA engine
+    runs long int64 torch ops; with six test workers, each op's OpenMP
+    pool on every core made the workers' ops wait on one another (tests
+    ran 100x slower than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def mixed_payload(n: int, seed: int) -> np.ndarray:
     """JSON-like records, a low-entropy stretch, and random bytes: sparse,
     dense and stored 64 KB blocks in one payload."""

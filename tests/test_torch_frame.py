@@ -25,6 +25,7 @@ import divortio_lz4_tpu as lz4
 import divortio_lz4_tpu_torch as pt
 import test_golden as golden
 from _torch_port import cuda, mixed_payload  # noqa: F401  (cuda: fixture)
+from _torch_port import one_torch_thread  # noqa: F401  (fixture)
 from divortio_lz4_tpu.config import FrameConfig
 from divortio_lz4_tpu.parallel.device import (device_compress_frame,
                                               device_decompress_frame)
@@ -172,25 +173,67 @@ def test_frames_in_flight_keep_order():
     assert [o.tobytes() for o in outs] == want
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_unsupported_configurations_raise():
+    """Every engine and route the JAX package has is served (the xla
+    engine both ways and hybrid decode, which used to raise, now equal
+    JAX's bytes); what JAX does not have raises: an engine name it lacks,
+    an assemble mode other than host or device."""
     data = np.zeros(1000, np.uint8)
-    # "hybrid" encodes (tests/test_torch_hybrid_encode.py); its decode, and
-    # "xla" both ways, are not ported
-    frame = pt.compress_frame(data, CFG, engine="hybrid", device="cpu")
-    assert frame.tobytes() == np.asarray(device_compress_frame(
-        data, CFG, engine="hybrid")).tobytes()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt.compress_frame(data, CFG, engine="xla", device="cpu")
+    for engine in ("hybrid", "xla"):
+        frame = pt.compress_frame(data, CFG, engine=engine, device="cpu")
+        assert frame.tobytes() == np.asarray(device_compress_frame(
+            data, CFG, engine=engine)).tobytes()
     for engine in ("xla", "hybrid"):
-        with pytest.raises(NotImplementedError, match=f"engine='{engine}'"):
+        np.testing.assert_array_equal(
             pt.decompress_frame(lz4.compress(data), engine=engine,
-                                device="cpu")
+                                device="cpu"),
+            np.asarray(device_decompress_frame(lz4.compress(data),
+                                               engine=engine)))
+    with pytest.raises(ValueError, match="no engine='wave'"):
+        pt.compress_frame(data, CFG, engine="wave", device="cpu")
+    with pytest.raises(ValueError, match="no engine='wave'"):
+        pt.decompress_frame(frame, engine="wave", device="cpu")
+    with pytest.raises(ValueError, match="assemble='chip'"):
+        pt.compress_frame(data, CFG, engine="xla", assemble="chip",
+                          device="cpu")
     # the default configuration (4 MB linked blocks) is ported
     frame = pt.compress_frame(data, FrameConfig(), device="cpu")
     assert frame.tobytes() == np.asarray(device_compress_frame(
         data, FrameConfig(), engine="split")).tobytes()
     np.testing.assert_array_equal(pt.decompress_frame(frame, device="cpu"),
                                   data)
+
+
+# Every (engine, configuration) the JAX device_compress_frame /
+# device_decompress_frame accepts and the port used to refuse.
+JAX_ROUTES = {
+    "xla_encode": ("xla", CFG, False),
+    "xla_linked_encode": ("xla", FrameConfig(block_size=65536), False),
+    "pallas_dictionary": ("pallas", CFG, True),
+    "pallas_linked": ("pallas", FrameConfig(block_size=65536), False),
+    "hybrid_linked_block_checksums": (
+        "hybrid", FrameConfig(block_size=65536, block_checksums=True), True),
+}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("route", list(JAX_ROUTES))
+def test_every_jax_engine_route_is_served(route):
+    """Each route encodes to JAX's bytes, and decodes on the same engine
+    to JAX's bytes (the pallas decode and the XLA decode behind hybrid)."""
+    engine, cfg, use_dict = JAX_ROUTES[route]
+    data, d = _data_and_dict(seed=11)
+    d = d if use_dict else None
+    want = np.asarray(device_compress_frame(data, cfg, dictionary=d,
+                                            engine=engine))
+    got = pt.compress_frame(data, cfg, dictionary=d, engine=engine,
+                            device="cpu")
+    assert got.tobytes() == want.tobytes()
+    out = pt.decompress_frame(got, dictionary=d, engine=engine, device="cpu")
+    ref = np.asarray(device_decompress_frame(want, dictionary=d,
+                                             engine=engine))
+    assert out.tobytes() == ref.tobytes() == data.tobytes()
 
 
 def test_device_is_explicit():

@@ -5,8 +5,8 @@ The port's plain encode_blocks_pallas must equal the JAX
 encode_blocks_pallas (its Pallas kernel in interpret mode) row for row,
 out_len included; compress_frame(engine="pallas") must equal the JAX
 device_compress_frame(engine="pallas") and the host encoder
-divortio_lz4_tpu.compress byte for byte. Linked frames and dictionaries,
-which JAX sends to its (unported) XLA encoder, raise. Tolerance: exact
+divortio_lz4_tpu.compress byte for byte. Linked frames and dictionaries
+go to the XLA encoder, as JAX sends them, with JAX's bytes. Tolerance: exact
 bytes everywhere; each row is compared over [0, out_len), where the TPU
 kernel leaves wild writes past it and the port zeros.
 """
@@ -19,10 +19,12 @@ import torch
 import divortio_lz4_tpu as lz4
 import divortio_lz4_tpu_torch as pt
 from _torch_port import cuda, mixed_payload  # noqa: F401  (cuda: fixture)
+from _torch_port import one_torch_thread  # noqa: F401  (fixture)
 from divortio_lz4_tpu.config import FrameConfig
 from divortio_lz4_tpu.ops import pallas_encode as jax_pe
 from divortio_lz4_tpu.parallel.device import device_compress_frame
 from divortio_lz4_tpu_torch.ops import greedy_encode as pt_ge
+from divortio_lz4_tpu_torch.parallel import device as pt_device
 from test_pallas_encode import CASES
 
 KB = 1024
@@ -239,15 +241,27 @@ def test_small_frames_match_host_encoder():
             .tobytes()
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("case", ["linked", "dictionary"])
-def test_linked_and_dictionary_raise(case):
+def test_linked_and_dictionary_raise(case, monkeypatch):
+    """Linked frames and dictionaries, which used to raise here, go to the
+    XLA encoder as in JAX: JAX's bytes, and the greedy kernel is never
+    called."""
     data = mixed_payload(10_000, 3)
     cfg = FrameConfig(block_size=64 * KB,
                       block_independence=case == "dictionary")
     d = data[:2000] if case == "dictionary" else None
-    with pytest.raises(NotImplementedError, match="XLA encoder"):
-        pt.compress_frame(data, cfg, dictionary=d, engine="pallas",
-                          device="cpu")
+
+    def greedy(*args, **kwargs):
+        raise AssertionError("the greedy kernel ran")
+    monkeypatch.setattr(pt_device, "encode_blocks_pallas", greedy)
+    got = pt.compress_frame(data, cfg, dictionary=d, engine="pallas",
+                            device="cpu")
+    want = np.asarray(device_compress_frame(data, cfg, dictionary=d,
+                                            engine="pallas"))
+    assert got.tobytes() == want.tobytes()
+    assert got.tobytes() == pt.compress_frame(
+        data, cfg, dictionary=d, engine="xla", device="cpu").tobytes()
 
 
 @pytest.mark.cuda

@@ -20,11 +20,13 @@ import torch
 
 import divortio_lz4_tpu_torch as pt
 from _torch_port import cuda, mixed_payload  # noqa: F401  (cuda: fixture)
+from _torch_port import one_torch_thread  # noqa: F401  (fixture)
 from conftest import make_compressible
 from divortio_lz4_tpu.config import FrameConfig
 from divortio_lz4_tpu.ops import hybrid_encode as jax_he
 from divortio_lz4_tpu.ops.split_encode import encode_block_split_host
-from divortio_lz4_tpu.parallel.device import device_compress_frame
+from divortio_lz4_tpu.parallel.device import (device_compress_frame,
+                                              device_decompress_frame)
 from divortio_lz4_tpu_torch.ops import hybrid_encode as pt_he
 from divortio_lz4_tpu_torch.ops import split_encode as pt_se
 from test_hybrid_encode import _adversarial_cases
@@ -268,16 +270,22 @@ def test_empty_payload_frame_has_no_block():
                                    device="cpu").tobytes() == b""
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_unported_routes_raise():
+    """The two routes that used to raise are ported: linked frames with
+    block checksums (the host frame encoder) and hybrid decode (the XLA
+    decoder), each equal to JAX's bytes."""
     data = mixed_payload(10_000, 6)
     cfg = FrameConfig(block_size=4 * KB, block_independence=False,
                       block_checksums=True)
-    with pytest.raises(NotImplementedError, match="host frame encoder"):
-        pt.compress_frame(data, cfg, engine="hybrid", device="cpu")
+    got = pt.compress_frame(data, cfg, engine="hybrid", device="cpu")
+    assert got.tobytes() == np.asarray(device_compress_frame(
+        data, cfg, engine="hybrid")).tobytes()
     frame = pt.compress_frame(data, cfg.with_(block_independence=True),
                               engine="hybrid", device="cpu")
-    with pytest.raises(NotImplementedError, match="engine='hybrid'"):
-        pt.decompress_frame(frame, engine="hybrid", device="cpu")
+    out = pt.decompress_frame(frame, engine="hybrid", device="cpu")
+    assert out.tobytes() == np.asarray(device_decompress_frame(
+        frame, engine="hybrid")).tobytes() == data.tobytes()
 
 
 def test_frames_in_flight_keep_order():

@@ -58,6 +58,14 @@ def _block_batch(kind: str, rng):
         # tests/test_fuzz.py:117: 8 rows of 1-191 random bytes, 2 KB out
         return [rng.integers(0, 256, int(rng.integers(1, 192)),
                              dtype=np.uint8) for _ in range(8)], None, 2048
+    if kind == "empty":
+        # hostile rows (which take the serial route) between rows of length
+        # 0, as a frame's stored blocks are staged: an empty row decodes to
+        # 0 bytes and a zero row
+        rows, _, cap = _block_batch("hostile", rng)
+        empty = np.zeros(0, np.uint8)
+        return [r for pair in zip(rows, [empty] * len(rows))
+                for r in pair], None, cap
     if kind == "history":
         # tests/test_pallas_decode.py's history cases, against one shared
         # window: records, then a periodic tail the second row continues
@@ -75,7 +83,7 @@ def _block_batch(kind: str, rng):
     return [np.asarray(lz4.compress_raw(d)) for d in datas], None, 16384
 
 
-@pytest.mark.parametrize("kind", ["valid", "history", "hostile"])
+@pytest.mark.parametrize("kind", ["valid", "history", "hostile", "empty"])
 def test_plain_decode_matches_jax_kernel(kind):
     rows, window, cap = _block_batch(kind, np.random.default_rng(0xD1507))
     M = -(-(max(len(r) for r in rows) + 256) // 1024) * 1024
@@ -145,7 +153,7 @@ def _group_edge() -> bytes:
 def _segmented_case(kind: str, rng):
     """(rows, window or None, block_size) of one case of the segmented
     rendition."""
-    if kind in ("valid", "history", "hostile"):
+    if kind in ("valid", "history", "hostile", "empty"):
         return _block_batch(kind, rng)
     if kind == "256k_dict":
         window = _records(40_000)
@@ -196,7 +204,7 @@ def _right_aligned(window):
 
 
 SEGMENTED = ["valid", "history", "256k_dict", "never_resync", "group_edge",
-             "o_limit", "offset_past_om", "hostile"]
+             "o_limit", "offset_past_om", "hostile", "empty"]
 
 
 @pytest.mark.parametrize("kind", SEGMENTED)
@@ -226,8 +234,12 @@ def test_segmented_rendition_matches_plain_and_jax(kind):
         np.testing.assert_array_equal(out[i, :n].numpy(), jo[i, :n] & 0xFF)
     seqs, redo, in_order, serial = stats.T.tolist()
     expect_serial = {"o_limit": [1] * 4, "offset_past_om": [1] * 3,
-                     "hostile": [1] * len(rows)}
+                     "hostile": [1] * len(rows),
+                     "empty": [1, 0] * (len(rows) // 2)}
     assert serial == expect_serial.get(kind, [0] * len(rows))
+    if kind == "empty":
+        assert seqs[1::2] == [0] * (len(rows) // 2)
+        assert not out_lens[1::2].any() and not out[1::2].any()
     if kind == "never_resync":
         # every segment past the first walked again: 351 sequences, 11 of
         # them (positions 0, 4, ..., 31) in segment 0; of the 350 matches
@@ -437,6 +449,34 @@ def test_cuda_blocks_kernel_matches_plain(cuda):
         stats = pt_td.decode_blocks_pallas_segmented_plain(*args)[2]
         assert torch.equal(pt_td.decode_blocks_pallas.last_stats.cpu().long(),
                            stats), kind
+
+
+@pytest.mark.cuda
+def test_cuda_blocks_kernel_zeroes_empty_rows(cuda):
+    """Rows of length 0 (a frame's stored blocks) between hostile rows,
+    more rows than the card runs at once, over device memory filled with
+    0xFF before each call: every empty row decodes to 0 bytes and a zero
+    row, whatever the SM's shared memory held before its block (the
+    serial route of a hostile row leaves its flag set there)."""
+    rng = np.random.default_rng(0xE3)
+    rows = []
+    for _ in range(512):
+        rows += [rng.integers(0, 256, int(rng.integers(1, 192)),
+                              dtype=np.uint8), np.zeros(0, np.uint8)]
+    comp, lens = _padded(rows)
+    cap = 4096
+    want = pt_td.decode_blocks_pallas_plain(torch.from_numpy(comp),
+                                            torch.from_numpy(lens), cap)
+    comp_d, lens_d = torch.from_numpy(comp).to(cuda), \
+        torch.from_numpy(lens).to(cuda)
+    for trial in range(8):
+        poison = torch.full((len(rows), cap), 255, dtype=torch.uint8,
+                            device=cuda)
+        del poison   # the kernel's output takes this block back
+        got = pt_td.decode_blocks_pallas(comp_d, lens_d, cap)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0,
+                                       msg=f"trial {trial}")
 
 
 @pytest.mark.cuda
