@@ -125,13 +125,37 @@ which must be exact.
    frame). On a 4 MiB slice the xla frames made on the card equal the
    port's on the CPU, at 64 KB independent and at linked 64 KB. The peak
    device memory, then a JSON line {"xla_engine": {...}}.
+12. Streaming on the card (backend="device", the port's default): the
+   64 MiB corpus at 64 KB blocks, independent and linked, with a content
+   checksum, through CompressStream.write/flush in 4 MiB chunks
+   (compress_file's default chunk_size), then a DecompressStream of its
+   own fed 4 MiB chunks: exact, the frame decoded exactly by
+   decompress_frame too, encode and decode MB/s (median of 3), device
+   blocks, bursts and blocks a burst on both sides and the host blocks
+   (device blocks must be > 0 on both sides of the independent stream,
+   and on the encoder of the linked one), compact_decode's launches; the
+   card's stream frame == the port's CPU stream frame on a 4 MiB prefix;
+   a 256 KB-block independent frame decoded by a DecompressStream (the
+   wire kernel, its launches); 8 mutated 4 MiB stream frames decoded: an
+   "LZ4: ..." ValueError or at most the bound, never a fault; the peak
+   device memory of the 64 KB streams and of the rest.
+13. ShardedCodec on the card: make_mesh(1) and [cuda:0, cuda:0] (the
+   split into shards and the join on one card), engines "best" and "xla"
+   on the 64 MiB corpus at 64 KB independent blocks: the frame equals the
+   single-device compress_frame(engine="hybrid") / (engine="xla") frame,
+   decodes exactly through both engines, and a 256 KB-block frame (16 MiB)
+   decodes exactly through the 64 KB codec; encode and decode MB/s for 1
+   and 2 shards (median of 3), the kernels' launches (hybrid_encode,
+   compact_decode and wire_decode must launch on "best"); the peak device
+   memory.
 
 Then a JSON line describing the kernels (with each one's bound: the bytes
 the function must move, without row padding or entries it never reads,
 over the H100's 3.35 TB/s; where ms and plain_ms come from different
-inputs, an "inputs" key names both), and last the device line. Any
-failed check raises and the exit code is non-zero. Needs an NVIDIA GPU,
-nvcc and g++; imports neither jax nor the JAX package.
+inputs, an "inputs" key names both; "launches" counts the frame path's
+run, "path_launches" the runs of phases 12 and 13), and last the device
+line. Any failed check raises and the exit code is non-zero. Needs an
+NVIDIA GPU, nvcc and g++; imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -1487,6 +1511,223 @@ def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
     print(json.dumps({"xla_engine": res}))
 
 
+def _stream_pass(pt, data, cfg, dev, chunk):
+    """One stream round trip of *data* fed in *chunk*-byte pieces: a
+    CompressStream's write/flush, then a DecompressStream of its own fed
+    the frame in *chunk*-byte pieces. Returns (frame, plaintext, encode
+    seconds, decode seconds, encoder stats, decoder stats)."""
+    t0 = time.perf_counter()
+    cs = pt.CompressStream(cfg, device=dev)
+    parts = [cs.write(data[i: i + chunk]) for i in range(0, len(data),
+                                                          chunk)]
+    parts.append(cs.flush())
+    frame = b"".join(parts)
+    t1 = time.perf_counter()
+    ds = pt.DecompressStream(device=dev)
+    out = b"".join(ds.write(frame[i: i + chunk])
+                   for i in range(0, len(frame), chunk))
+    t2 = time.perf_counter()
+    return (frame, out, t1 - t0, t2 - t1, dict(cs._enc.stats),
+            dict(ds._dec.stats))
+
+
+def _phase12(torch, pt, dev, corpus, seed, tag) -> dict:
+    """Streaming on the card (the module docstring's phase 12). Returns
+    the launches of compact_decode and wire_decode in its runs."""
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.ops.compact_decode import decode_blocks_compact
+    from divortio_lz4_tpu_torch.ops.wire_decode import decode_blocks_wire
+
+    n = len(corpus)
+    corpus_b = corpus.tobytes()
+    chunk = 4 * MIB        # compress_file's default chunk_size
+    torch.cuda.reset_peak_memory_stats()
+    launches = {"compact_decode": 0, "wire_decode": 0}
+    for name, cfg in (
+            ("independent", FrameConfig(block_size=65536,
+                                        block_independence=True,
+                                        content_checksum=True)),
+            ("linked", FrameConfig(block_size=65536,
+                                   block_independence=False,
+                                   content_checksum=True))):
+        _stream_pass(pt, corpus[: 8 * MIB], cfg, dev, chunk)    # warm-up
+        decode_blocks_compact.launches = 0
+        t_enc, t_dec = [], []
+        for _ in range(3):
+            frame, out, te, td, es, ds = _stream_pass(pt, corpus, cfg, dev,
+                                                      chunk)
+            t_enc.append(te)
+            t_dec.append(td)
+            if out != corpus_b:
+                raise AssertionError(f"{name} stream round trip differs")
+        compact = decode_blocks_compact.launches
+        launches["compact_decode"] += compact
+        if es["device_blocks"] < 1:
+            raise AssertionError(f"{name} stream: no device encode burst")
+        if name == "independent" and (ds["device_blocks"] < 1
+                                      or compact < 3):
+            raise AssertionError(f"independent stream decode: device "
+                                 f"blocks {ds['device_blocks']}, "
+                                 f"compact_decode launches {compact}")
+        got = pt.decompress_frame(frame, device=dev)
+        if got.tobytes() != corpus_b:
+            raise AssertionError(f"{name} stream frame: decompress_frame "
+                                 "differs")
+        enc_s, dec_s = statistics.median(t_enc), statistics.median(t_dec)
+        print(f"phase 12: {name} stream (64 KB blocks, content checksum), "
+              f"64 MiB fed in 4 MiB chunks, {len(frame)} B: "
+              f"decompress_frame and a DecompressStream give the corpus; "
+              f"encoder: device blocks {es['device_blocks']} in "
+              f"{es['device_bursts']} bursts "
+              f"({es['device_blocks'] / max(es['device_bursts'], 1):.1f} a "
+              f"burst), host blocks {es['host_blocks']}; decoder: device "
+              f"blocks {ds['device_blocks']} in {ds['device_bursts']} "
+              f"bursts, host blocks {ds['host_blocks']}; compact_decode "
+              f"launches {compact} {tag}")
+        print(f"phase 12: {name} stream: encode {n / enc_s / 1e6:.1f} MB/s, "
+              f"decode {n / dec_s / 1e6:.1f} MB/s (median of 3; enc "
+              f"{t_enc}, dec {t_dec} s) {tag}")
+        prefix = corpus[: 4 * MIB]
+        card_f = _stream_pass(pt, prefix, cfg, dev, chunk)[0]
+        cpu_f = _stream_pass(pt, prefix, cfg, "cpu", chunk)[0]
+        if card_f != cpu_f:
+            raise AssertionError(f"{name} stream: card bytes != CPU bytes "
+                                 "on the 4 MiB prefix")
+        print(f"phase 12: {name} stream: the card's frame == the port's "
+              f"CPU frame on the 4 MiB prefix ({len(card_f)} B) {tag}")
+
+    peak = torch.cuda.max_memory_allocated() / MIB
+    print(f"phase 12: peak device memory of the 64 KB streams {peak:.0f} "
+          f"MiB {tag}")
+
+    # 256 KB independent blocks: the decoder's bursts take the wire kernel
+    cfg = FrameConfig(block_size=262144, block_independence=True,
+                      content_checksum=True)
+    wide = pt.compress_frame(corpus, cfg, device=dev).tobytes()
+    torch.cuda.reset_peak_memory_stats()
+    decode_blocks_wire.launches = 0
+    ds = pt.DecompressStream(device=dev)
+    out = b"".join(ds.write(wide[i: i + chunk])
+                   for i in range(0, len(wide), chunk))
+    launches["wire_decode"] = decode_blocks_wire.launches
+    st = ds._dec.stats
+    if out != corpus_b or launches["wire_decode"] < 1:
+        raise AssertionError(f"256 KB stream decode: exact "
+                             f"{out == corpus_b}, wire_decode launches "
+                             f"{launches['wire_decode']}")
+    print(f"phase 12: 256 KB independent frame through a DecompressStream "
+          f"(4 MiB chunks): exact; device blocks {st['device_blocks']} in "
+          f"{st['device_bursts']} bursts, host blocks {st['host_blocks']}; "
+          f"wire_decode launches {launches['wire_decode']} {tag}")
+
+    # mutated frames: an "LZ4: ..." error or at most the bound, no fault
+    rng = np.random.default_rng(seed)
+    cfg = FrameConfig(block_size=65536, block_independence=True,
+                      content_checksum=True)
+    base = bytearray(_stream_pass(pt, corpus[: 4 * MIB], cfg, dev,
+                                  chunk)[0])
+    outcomes = []
+    for _ in range(8):
+        buf = bytearray(base)
+        for at in rng.integers(0, len(buf), 2):
+            buf[int(at)] = int(rng.integers(0, 256))
+        try:
+            got = pt.LZ4Decoder(device=dev).update(bytes(buf))
+            size = sum(len(c) for c in got)
+            if size > 4 * MIB + 65536:
+                raise AssertionError(f"mutated frame decoded {size} B")
+            outcomes.append(f"{size} B")
+        except ValueError as e:
+            if not str(e).startswith("LZ4: "):
+                raise
+            outcomes.append(str(e))
+    torch.cuda.synchronize()
+    print(f"phase 12: 8 mutated 4 MiB stream frames: no fault; "
+          f"{outcomes} {tag}")
+    peak = torch.cuda.max_memory_allocated() / MIB
+    print(f"phase 12: peak device memory of the 256 KB stream decode and "
+          f"the mutated frames {peak:.0f} MiB {tag}")
+    return launches
+
+
+def _phase13(torch, pt, dev, corpus, tag) -> dict:
+    """ShardedCodec on the card (the module docstring's phase 13). Returns
+    the launches of hybrid_encode, compact_decode and wire_decode in its
+    runs."""
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.ops.compact_decode import decode_blocks_compact
+    from divortio_lz4_tpu_torch.ops.hybrid_encode import hybrid_walk
+    from divortio_lz4_tpu_torch.ops.wire_decode import decode_blocks_wire
+    from divortio_lz4_tpu_torch.parallel import ShardedCodec, make_mesh
+
+    n = len(corpus)
+    corpus_b = corpus.tobytes()
+    mesh = make_mesh(1)
+    if mesh != [torch.device("cuda", 0)]:
+        raise AssertionError(f"make_mesh(1) gave {mesh}")
+    cfg = FrameConfig(block_size=65536, block_independence=True)
+    torch.cuda.reset_peak_memory_stats()
+    fns = {"hybrid_encode": hybrid_walk,
+           "compact_decode": decode_blocks_compact,
+           "wire_decode": decode_blocks_wire}
+    launches = dict.fromkeys(fns, 0)
+    single = {e: pt.compress_frame(corpus, cfg,
+                                   engine="hybrid" if e == "best" else "xla",
+                                   device=dev).tobytes()
+              for e in ("best", "xla")}
+    wide = pt.compress_frame(corpus[: 16 * MIB], FrameConfig(
+        block_size=262144, block_independence=True), device=dev)
+    for engine in ("best", "xla"):
+        for shards, devices in (("1 shard", mesh), ("2 shards", [dev, dev])):
+            codec = ShardedCodec(devices, engine=engine)
+            codec.decompress(codec.compress(corpus[: 8 * MIB]))  # warm-up
+            for fn in fns.values():
+                fn.launches = 0
+            t_enc, t_dec = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                frame = codec.compress(corpus)
+                t1 = time.perf_counter()
+                out = codec.decompress(frame)
+                t2 = time.perf_counter()
+                t_enc.append(t1 - t0)
+                t_dec.append(t2 - t1)
+                if out.tobytes() != corpus_b:
+                    raise AssertionError(f"{engine} {shards}: round trip "
+                                         "differs")
+            if frame.tobytes() != single[engine]:
+                raise AssertionError(f"{engine} {shards}: frame != the "
+                                     "single-device compress_frame frame")
+            other = ShardedCodec(devices, engine="xla" if engine == "best"
+                                 else "best")
+            if other.decompress(frame).tobytes() != corpus_b:
+                raise AssertionError(f"{engine} {shards}: the other "
+                                     "engine's decode differs")
+            if codec.decompress(wide).tobytes() != corpus_b[: 16 * MIB]:
+                raise AssertionError(f"{engine} {shards}: the 256 KB frame "
+                                     "decodes wrong through the 64 KB codec")
+            runs = {k: fn.launches for k, fn in fns.items()}
+            for k in fns:
+                launches[k] += runs[k]
+            if engine == "best" and min(runs.values()) < 1:
+                raise AssertionError(f"best {shards}: launches {runs}")
+            enc_s, dec_s = statistics.median(t_enc), statistics.median(t_dec)
+            print(f"phase 13: ShardedCodec(engine={engine!r}) over "
+                  f"{shards} ({[str(d) for d in devices]}), 64 MiB at 64 KB "
+                  f"independent blocks, {len(frame)} B: == the "
+                  f"single-device compress_frame(engine="
+                  f"{'hybrid' if engine == 'best' else 'xla'!r}) frame, "
+                  f"decoded exactly by both engines; a 256 KB-block frame "
+                  f"(16 MiB) decodes exactly through it; launches {runs} "
+                  f"{tag}")
+            print(f"phase 13: {engine} {shards}: encode "
+                  f"{n / enc_s / 1e6:.1f} MB/s, decode {n / dec_s / 1e6:.1f} "
+                  f"MB/s (median of 3; enc {t_enc}, dec {t_dec} s) {tag}")
+    peak = torch.cuda.max_memory_allocated() / MIB
+    print(f"phase 13: peak device memory {peak:.0f} MiB {tag}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0x51E51A)
@@ -1657,6 +1898,8 @@ def main() -> int:
     split = _phase10(torch, pt, dev, corpus, hybrid_frame, dict_frame, d,
                      args.seed, tag)
     _phase11(torch, pt, dev, corpus, ref_frame, card, tag)
+    stream_launches = _phase12(torch, pt, dev, corpus, args.seed, tag)
+    sharded_launches = _phase13(torch, pt, dev, corpus, tag)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "divortio_lz4_tpu"))
@@ -1706,11 +1949,15 @@ def main() -> int:
     for k in kernels:
         # no PyTorch call computes an LZ4 encode or decode: library_ms null
         k.update(route="cuda", source=src + k["source"], bound_by="bytes",
-                 library_ms=None)
+                 library_ms=None,
+                 path_launches={"stream": stream_launches.get(k["name"], 0),
+                                "sharded": sharded_launches.get(k["name"],
+                                                                0)})
         if k["launches"] < 1 or k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: launches {k['launches']}, "
                                  f"max_abs_err {k['max_abs_err']}")
     print(json.dumps({"kernels": [{key: k[key] for key in keys
+                                   + ("path_launches",)
                                    + (("inputs",) if "inputs" in k else ())}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

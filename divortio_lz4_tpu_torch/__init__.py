@@ -39,15 +39,30 @@ every engine but split up to 64 KB, as in JAX.
                                         hybrid: torch ops
   compress_frames, decompress_frames    every frame's device work queued,
                                         one device-to-host fetch per batch
+  LZ4Encoder, LZ4Decoder, CompressStream, DecompressStream,
+  create_compress_stream, create_decompress_stream, compress_file,
+  decompress_file                       streaming (``stream.py``): bursts
+                                        of >= 4 full blocks on the device
+                                        (chain builder + host serialize;
+                                        compact or wire kernel), the rest
+                                        on the host block codec
+  parallel.ShardedCodec, parallel.make_mesh
+                                        a frame's blocks sharded over a
+                                        list of torch devices
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 asks for the CPU (``device="cpu"``), where the kernels' plain PyTorch
-versions run; without a GPU, ``"cuda"`` raises RuntimeError. The package
+versions run; without a GPU, ``"cuda"`` raises RuntimeError. The streams
+default to ``backend="device"`` (JAX's default is its host codec; pass
+``"native"`` or ``"python"`` for the host codecs), and ``ShardedCodec``
+to every CUDA device (``make_mesh()``; pass ``["cpu"] * n`` for the CPU). The package
 carries its own host layer (``config``, ``constants``, ``utils``, ``xxh``,
 ``frame`` and ``host``, the ctypes binding of ``csrc/host_kernels.cpp``,
 built with g++ at first use) and imports neither jax nor the JAX package.
 """
 
+from . import parallel
+from .backends import available_backends, get_backend
 from .config import DEFAULT_CONFIG, FrameConfig
 from .parallel.device import (
     compress_frame,
@@ -55,9 +70,25 @@ from .parallel.device import (
     decompress_frame,
     decompress_frames,
 )
+from .stream import (
+    CompressStream,
+    DecompressStream,
+    LZ4Decoder,
+    LZ4Encoder,
+    compress_file,
+    create_compress_stream,
+    create_decompress_stream,
+    decompress_file,
+)
+from .xxh import XXHash32, xxhash32
 
 __all__ = [
     "FrameConfig", "DEFAULT_CONFIG",
     "compress_frame", "compress_frames",
     "decompress_frame", "decompress_frames",
+    "LZ4Encoder", "LZ4Decoder", "CompressStream", "DecompressStream",
+    "create_compress_stream", "create_decompress_stream",
+    "compress_file", "decompress_file",
+    "parallel", "xxhash32", "XXHash32",
+    "available_backends", "get_backend",
 ]

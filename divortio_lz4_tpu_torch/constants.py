@@ -7,6 +7,9 @@ unchanged), so the port does not import the JAX package.
 # Frame magic (little-endian on the wire) and version.
 MAGIC_NUMBER = 0x184D2204
 LZ4_VERSION = 1
+# Skippable frames: any magic in this range, then a u32 length.
+SKIPPABLE_MAGIC_MIN = 0x184D2A50
+SKIPPABLE_MAGIC_MAX = 0x184D2A5F
 
 # FLG byte bit masks.
 FLG_VERSION_MASK = 0xC0
@@ -35,7 +38,8 @@ LAST_LITERALS = 5       # final bytes of a block must be literals
 MF_LIMIT = 12           # match search stops MF_LIMIT bytes before block end
 HASH_LOG = 14
 HASH_SHIFT = 18
-HASH_MASK = (1 << HASH_LOG) - 1
+HASH_TABLE_SIZE = 1 << HASH_LOG     # 16384 entries
+HASH_MASK = HASH_TABLE_SIZE - 1
 HASH_MULTIPLIER = 2654435761
 # The skip stride grows by one every 1 << SKIP_TRIGGER misses.
 SKIP_TRIGGER = 6

@@ -11,6 +11,9 @@
 //   lz4t_warm_table          (:119)  dictionary warm-up of the hash table
 //   lz4t_compress_frame_body (:260)  the host frame encoder's block loop,
 //                                    over compress_block_core (:136)
+//   lz4t_xxh32_round4        (:88)   the streaming hasher's bulk stripes
+//   lz4t_compress_block      (:241)  one block, the stream's host codec
+//   lz4t_decompress_block    (:408)  one block with a dictionary
 // Built with g++ at first use by divortio_lz4_tpu_torch/_build.py.
 
 #include <cstdint>
@@ -81,6 +84,20 @@ uint32_t lz4t_xxhash32(const uint8_t* buf, int64_t len, uint32_t seed) {
   h32 *= P3;
   h32 ^= h32 >> 16;
   return h32;
+}
+
+// Bulk stripe processing for the streaming hasher: consumes nwords/4 full
+// stripes, updating v[0..3] in place.
+void lz4t_xxh32_round4(uint32_t* v, const uint32_t* words, int64_t nwords) {
+  uint32_t v1 = v[0], v2 = v[1], v3 = v[2], v4 = v[3];
+  int64_t n = (nwords / 4) * 4;
+  for (int64_t i = 0; i < n; i += 4) {
+    v1 = xxh_round(v1, words[i]);
+    v2 = xxh_round(v2, words[i + 1]);
+    v3 = xxh_round(v3, words[i + 2]);
+    v4 = xxh_round(v4, words[i + 3]);
+  }
+  v[0] = v1; v[1] = v2; v[2] = v3; v[3] = v4;
 }
 
 // ---------------------------------------------------------------------------
@@ -702,6 +719,149 @@ int64_t lz4t_compress_frame_body(const uint8_t* __restrict src,
   std::memcpy(dst + pos, &zero, 4);  // EndMark
   pos += 4;
   return pos - dst_off;
+}
+
+// One block through compress_block_core without wild copies: dst needs
+// only block_bound(src_len) bytes past dst_off. Returns bytes written.
+int64_t lz4t_compress_block(const uint8_t* src, uint8_t* dst,
+                            int64_t src_start, int64_t src_len,
+                            int32_t* table, int64_t dst_off) {
+  return compress_block_core(src, dst, src_start, src_len, table, dst_off,
+                             0);
+}
+
+// ---------------------------------------------------------------------------
+// Block decompress
+// ---------------------------------------------------------------------------
+
+// Sequence interpreter with dictionary back-references. dst_cap is the
+// full output buffer length; back-references below index 0 read the
+// dictionary from its END; a match may span dictionary into output.
+// Returns bytes written at dst + dst_off, or an error code.
+int64_t lz4t_decompress_block(const uint8_t* src, int64_t src_off,
+                              int64_t src_len, uint8_t* dst, int64_t dst_cap,
+                              int64_t dst_off, const uint8_t* dict,
+                              int64_t dict_len) {
+  int64_t p = src_off;
+  const int64_t end = src_off + src_len;
+  int64_t o = dst_off;
+
+  // Wild-copy fast path: unconditional 16-byte chunk copies may write up to
+  // 15 bytes past the copy's logical end; legal while both cursors stay
+  // WILD_MARGIN clear of their buffers' ends (later sequences overwrite the
+  // spill). The tail of the block falls back to exact copies.
+  const int64_t WILD_MARGIN = 32;
+  const int64_t wild_cap = dst_cap - WILD_MARGIN;
+
+  while (p < end) {
+    uint32_t token = src[p++];
+    int64_t lit_len = token >> 4;
+
+    // --- literals ---
+    if (lit_len == 15) {
+      uint32_t b;
+      do {
+        if (p >= end) return ERR_MALFORMED;
+        b = src[p++];
+        lit_len += b;
+      } while (b == 255);
+    }
+    if (o + lit_len > dst_cap) return ERR_OUTPUT_SMALL;
+    if (p + lit_len > end) return ERR_MALFORMED;
+    if (lit_len <= 16 && p + 16 <= end && o + 16 <= wild_cap) {
+      std::memcpy(dst + o, src + p, 16);  // wild 16B covers <=16 literals
+    } else if (lit_len) {
+      std::memcpy(dst + o, src + p, (size_t)lit_len);
+    }
+    o += lit_len;
+    p += lit_len;
+    if (p >= end) break;
+
+    // --- offset + match length ---
+    if (p + 2 > end) return ERR_MALFORMED;
+    int64_t offset = src[p] | (src[p + 1] << 8);
+    p += 2;
+    if (offset == 0) return ERR_OFFSET0;
+
+    int64_t match_len = token & 0x0F;
+    if (match_len == 15) {
+      uint32_t b;
+      do {
+        if (p >= end) return ERR_MALFORMED;
+        b = src[p++];
+        match_len += b;
+      } while (b == 255);
+    }
+    match_len += MIN_MATCH;
+    if (o + match_len > dst_cap) return ERR_OUTPUT_SMALL;
+
+    int64_t cs = o - offset;
+    if (cs < 0) {
+      // Dictionary back-reference, dict indexed from its end.
+      int64_t from_dict = -cs;
+      int64_t dict_start = dict_len - from_dict;
+      int64_t take = from_dict < match_len ? from_dict : match_len;
+      if (dict_start < 0 || dict_start + take > dict_len) return ERR_DICT_OOB;
+      std::memcpy(dst + o, dict + dict_start, (size_t)take);
+      o += take;
+      int64_t remaining = match_len - take;
+      int64_t rp = o - offset;
+      while (remaining--) dst[o++] = dst[rp++];
+    } else if (offset >= match_len) {
+      // Non-overlapping: one wild 16B copy covers the common short match;
+      // long matches take a single memcpy.
+      if (match_len <= 16 && offset >= 16 && o + 16 <= wild_cap) {
+        std::memcpy(dst + o, dst + cs, 16);
+      } else {
+        std::memcpy(dst + o, dst + cs, (size_t)match_len);
+      }
+      o += match_len;
+    } else if (offset >= 16) {
+      // Overlapping, offset >= 16: wild 16B-chunk copy propagates correctly
+      // (each chunk's source bytes are written by prior chunks); period
+      // doubling near the buffer end (memmove would NOT propagate).
+      if (o + match_len + 16 <= wild_cap) {
+        int64_t dp = o, sp = cs;
+        int64_t stop = o + match_len;
+        do {
+          std::memcpy(dst + dp, dst + sp, 16);
+          dp += 16;
+          sp += 16;
+        } while (dp < stop);
+      } else {
+        int64_t remaining = match_len;
+        int64_t avail = offset;
+        int64_t dp = o;
+        while (remaining > 0) {
+          int64_t c = avail < remaining ? avail : remaining;
+          std::memcpy(dst + dp, dst + cs, (size_t)c);
+          dp += c;
+          remaining -= c;
+          avail += c;
+        }
+      }
+      o += match_len;
+    } else if (offset == 1) {
+      // RLE.
+      std::memset(dst + o, dst[cs], (size_t)match_len);
+      o += match_len;
+    } else {
+      // Short-offset overlap (2..15): period-doubling copy, O(log)
+      // non-overlapping memcpys instead of a byte loop.
+      int64_t remaining = match_len;
+      int64_t avail = offset;
+      int64_t dp = o;
+      while (remaining > 0) {
+        int64_t c = avail < remaining ? avail : remaining;
+        std::memcpy(dst + dp, dst + cs, (size_t)c);
+        dp += c;
+        remaining -= c;
+        avail += c;
+      }
+      o += match_len;
+    }
+  }
+  return o - dst_off;
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ The wrappers and the error table are copies of
 ``divortio_lz4_tpu/native/__init__.py`` (``xxhash32_native``,
 ``scan_pieces_native``, ``parse_records_native``, ``parse_records2_native``,
 ``chain_serialize16_native``, ``chain_serialize16_meta_native``,
-``warm_table_native``, ``compress_frame_body_native``). The
+``warm_table_native``, ``compress_frame_body_native``,
+``xxh32_round4_native``, ``compress_block_native``,
+``decompress_block_native``). The
 library is built with g++ at its first use (``_build.py``), never at
 import. Every function validates its buffers in Python before passing
 pointers, and raises "LZ4: ..." ValueErrors on the C error codes.
@@ -52,6 +54,12 @@ def _lib() -> ctypes.CDLL:
     lib.lz4t_compress_frame_body.restype = i64
     lib.lz4t_compress_frame_body.argtypes = [p, i64, i64, p, i64, i64, p,
                                              ctypes.c_int32, ctypes.c_int32]
+    lib.lz4t_xxh32_round4.restype = None
+    lib.lz4t_xxh32_round4.argtypes = [p, p, i64]
+    lib.lz4t_compress_block.restype = i64
+    lib.lz4t_compress_block.argtypes = [p, p, i64, i64, p, i64]
+    lib.lz4t_decompress_block.restype = i64
+    lib.lz4t_decompress_block.argtypes = [p, i64, i64, p, i64, i64, p, i64]
     return lib
 
 
@@ -210,3 +218,61 @@ def compress_frame_body_native(working: np.ndarray, input_start: int,
     return int(_lib().lz4t_compress_frame_body(
         _ptr(working), input_start, total_end, _ptr(out), dst_off,
         block_size, _ptr(table), int(independent), int(block_checksums)))
+
+
+def xxh32_round4_native(v1, v2, v3, v4, words: np.ndarray):
+    """Consume len(words) // 4 full 16-byte stripes (u32 lanes) into the
+    streaming hasher's accumulators; returns the new (v1, v2, v3, v4)."""
+    v = np.array([v1, v2, v3, v4], dtype=np.uint32)
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    _lib().lz4t_xxh32_round4(_ptr(v), _ptr(words), len(words))
+    return int(v[0]), int(v[1]), int(v[2]), int(v[3])
+
+
+def compress_block_native(src, dst: np.ndarray, src_start: int,
+                          src_len: int, hash_table: np.ndarray,
+                          dst_off: int) -> int:
+    """Greedy-compress src[src_start : src_start + src_len] into *dst* at
+    dst_off (see lz4t_compress_block), matches reaching back into
+    src[:src_start] through the warmed *hash_table*. Returns bytes
+    written."""
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    if dst.dtype != np.uint8 or not dst.flags.c_contiguous \
+            or not dst.flags.writeable:
+        raise ValueError("dst must be a writable contiguous uint8 array")
+    if hash_table.dtype != np.int32 or not hash_table.flags.c_contiguous \
+            or len(hash_table) != 1 << 14:
+        raise ValueError("hash_table must be a contiguous int32[16384]")
+    if src_start + src_len > len(src):
+        raise ValueError(f"src holds {len(src)} bytes < src_start + src_len")
+    if len(dst) - dst_off < src_len + src_len // 255 + 16:
+        raise ValueError("dst is smaller than block_bound(src_len)")
+    return int(_lib().lz4t_compress_block(
+        _ptr(src), _ptr(dst), src_start, src_len, _ptr(hash_table),
+        dst_off))
+
+
+def decompress_block_native(src, src_off: int, src_len: int,
+                            dst: np.ndarray, dst_off: int,
+                            dictionary=None) -> int:
+    """Decode the block src[src_off : src_off + src_len] into *dst* at
+    dst_off, back-references before index 0 of *dst* reading *dictionary*
+    from its end (see lz4t_decompress_block). Returns bytes written;
+    raises the host error taxonomy on malformed blocks."""
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    if dst.dtype != np.uint8 or not dst.flags.c_contiguous \
+            or not dst.flags.writeable:
+        raise ValueError("dst must be a writable contiguous uint8 array")
+    if src_off + src_len > len(src):
+        raise ValueError(f"src holds {len(src)} bytes < src_off + src_len")
+    if dictionary is not None:
+        dictionary = np.ascontiguousarray(dictionary, dtype=np.uint8)
+        dptr, dlen = _ptr(dictionary), len(dictionary)
+    else:
+        dptr, dlen = None, 0
+    rc = int(_lib().lz4t_decompress_block(
+        _ptr(src), src_off, src_len, _ptr(dst), len(dst), dst_off, dptr,
+        dlen))
+    if rc < 0:
+        raise ValueError(_ERRORS.get(rc, f"LZ4: native error {rc}"))
+    return rc

@@ -444,24 +444,22 @@ def _encode_route(engine: str, config: FrameConfig, dictionary,
     return "hybrid" if engine == "hybrid" else "xla"
 
 
-def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
-                         encoder: str, use_fingerprints: bool,
-                         assemble: str) -> tuple[list, Callable]:
-    """Queue one frame's row encode on *device*: the greedy kernel
-    (``engine="pallas"``, rows without history), the hybrid walk or the
-    XLA encoder over ``_history_rows``' rows, then host assembly
-    (``_host_assemble``) or, with ``assemble="device"``, ``assemble_blocks``
-    as JAX does (``device.py:196-215, 778-788``: linked frames always,
-    independent ones without block checksums and with a payload). Returns
-    (device tensors, finish) as _queue_compress does."""
-    bs = config.resolved_block_size
-    linked = not config.block_independence
-    if encoder == "pallas":
-        work, lens, nblocks = _blocks_to_batch(raw, bs)
-        hist_len, hist_start = 0, 0
-    else:
-        work, lens, nblocks, hist_len, hist_start = _history_rows(
-            raw, bs, window, linked)
+def shard_spans(n: int, devices: list) -> list:
+    """Contiguous shards of *n* rows over *devices*, as JAX shards a batch
+    padded to a multiple of the device count (``sharding.py:137-143``):
+    ceil(n / len(devices)) rows a device, in device order. Returns
+    (device, slice) pairs; a device whose shard would hold only padding
+    is left out."""
+    per = max(1, -(-n // len(devices)))
+    return [(dev, slice(k * per, min((k + 1) * per, n)))
+            for k, dev in enumerate(devices) if k * per < n]
+
+
+def _encode_row_batch(encoder: str, work, lens, bs, hist_len, hist_start,
+                      use_fingerprints, device):
+    """Queue one batch of rows on *device* through the greedy kernel, the
+    hybrid walk or the XLA encoder. Returns (d_work, d_lens, out,
+    out_lens), all on *device*."""
     d_work = _put(work, device)
     d_lens = _put(lens.astype(np.int64), device)
     if encoder == "pallas":
@@ -472,32 +470,71 @@ def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
     else:
         out, out_lens = encode_blocks_batch(d_work, d_lens, hist_len,
                                             use_fingerprints, hist_start)
+    return d_work, d_lens, out, out_lens
+
+
+def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
+                         encoder: str, use_fingerprints: bool,
+                         assemble: str, shards: Optional[list] = None
+                         ) -> tuple[list, Callable]:
+    """Queue one frame's row encode on *device*: the greedy kernel
+    (``engine="pallas"``, rows without history), the hybrid walk or the
+    XLA encoder over ``_history_rows``' rows, then host assembly
+    (``_host_assemble``) or, with ``assemble="device"``, ``assemble_blocks``
+    as JAX does (``device.py:196-215, 778-788``: linked frames always,
+    independent ones without block checksums and with a payload). With
+    *shards* (a list of devices, the JAX ``encode_batch`` hook of
+    ``ShardedCodec``), the rows are split by ``shard_spans`` and each shard
+    is encoded on its own device; host assembly only. Returns (device
+    tensors, finish) as _queue_compress does."""
+    bs = config.resolved_block_size
+    linked = not config.block_independence
+    if encoder == "pallas":
+        work, lens, nblocks = _blocks_to_batch(raw, bs)
+        hist_len, hist_start = 0, 0
+    else:
+        work, lens, nblocks, hist_len, hist_start = _history_rows(
+            raw, bs, window, linked)
+    finish = _finish_rows(raw, lens, nblocks, bs, config, dict_id)
+    if shards is not None:
+        tensors = []
+        for dev, rows in shard_spans(nblocks, shards):
+            hs = hist_start[rows] if isinstance(hist_start, np.ndarray) \
+                else hist_start
+            tensors += _encode_row_batch(encoder, work[rows], lens[rows], bs,
+                                         hist_len, hs, use_fingerprints,
+                                         dev)[2:]
+        return tensors, finish
+    d_work, d_lens, out, out_lens = _encode_row_batch(
+        encoder, work, lens, bs, hist_len, hist_start, use_fingerprints,
+        device)
     if assemble != "device" or not (
             linked or (not config.block_checksums and len(raw) > 0)):
-        return [out, out_lens], _finish_rows(raw, lens, nblocks, bs, config,
-                                             dict_id)
+        return [out, out_lens], finish
     body, total = assemble_blocks(out, out_lens, d_work[:, hist_len:],
                                   d_lens, nblocks * (4 + bs) + 4)
     header = _frame_header_bytes(config, len(raw), dict_id)
 
-    def finish(fetched):
+    def finish_device(fetched):
         parts = [header, fetched[0]]
         if config.content_checksum:
             ck = np.empty(4, np.uint8)
             write_u32le(ck, 0, xxhash32(raw, 0))
             parts.append(ck)
         return np.concatenate(parts)
-    return [body[: int(total)]], finish
+    return [body[: int(total)]], finish_device
 
 
 def _finish_rows(raw, lens, nblocks, bs, config, dict_id) -> Callable:
     """The finish of a frame whose blocks a kernel encoded into rows: the
-    fetched (rows, lengths) assembled as the JAX ``_host_assemble`` does,
-    where an empty payload makes a frame with no block."""
+    fetched (rows, lengths) pairs, one pair per shard in row order,
+    assembled as the JAX ``_host_assemble`` does, where an empty payload
+    makes a frame with no block."""
     def finish(fetched):
-        outs, ols = fetched
         nb = nblocks if len(raw) else 0
-        comps = [outs[b, : int(ols[b])] for b in range(nb)]
+        comps = [outs[b, : int(ols[b])]
+                 for outs, ols in zip(fetched[0::2], fetched[1::2])
+                 for b in range(len(ols))][:nb]
         return _assemble_frame_host(raw, comps, lens, nb, bs, config,
                                     dict_id)
     return finish
@@ -509,26 +546,31 @@ _NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16,
 
 def _fetch_all(tensors: list) -> list:
     """Copy device tensors of any dtypes and shapes to the host with ONE
-    device-to-host transfer (each viewed as bytes, padded to 8-byte
-    alignment and joined, then cut and viewed back); returns numpy arrays
-    in input order."""
-    if not tensors:
-        return []
-    parts, spans = [], []
-    pos = 0
-    for x in tensors:
-        b = x.contiguous().reshape(-1).view(torch.uint8)
-        pad = -b.numel() % 8
-        parts.append(b)
-        if pad:
-            parts.append(torch.zeros(pad, dtype=torch.uint8,
-                                     device=b.device))
-        spans.append(pos)
-        pos += b.numel() + pad
-    flat = torch.cat(parts).cpu().numpy()
-    return [flat[at: at + x.numel() * x.element_size()]
-            .view(_NP_DTYPES[x.dtype]).reshape(tuple(x.shape))
-            for x, at in zip(tensors, spans)]
+    device-to-host transfer per device (each viewed as bytes, padded to
+    8-byte alignment and joined, then cut and viewed back); returns numpy
+    arrays in input order."""
+    by_dev = {}
+    for i, x in enumerate(tensors):
+        by_dev.setdefault(x.device, []).append(i)
+    got = [None] * len(tensors)
+    for idx in by_dev.values():
+        parts, spans = [], []
+        pos = 0
+        for i in idx:
+            b = tensors[i].contiguous().reshape(-1).view(torch.uint8)
+            pad = -b.numel() % 8
+            parts.append(b)
+            if pad:
+                parts.append(torch.zeros(pad, dtype=torch.uint8,
+                                         device=b.device))
+            spans.append(pos)
+            pos += b.numel() + pad
+        flat = torch.cat(parts).cpu().numpy()
+        for i, at in zip(idx, spans):
+            x = tensors[i]
+            got[i] = flat[at: at + x.numel() * x.element_size()] \
+                .view(_NP_DTYPES[x.dtype]).reshape(tuple(x.shape))
+    return got
 
 
 def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
@@ -836,10 +878,34 @@ def _decode_linked_xla(buf, blocks, bs, window, device):
     return [flat[: int(total)]], lambda f: f[0]
 
 
+def _sharded_route(route, buf, blocks, bs, window, shards):
+    """Run an independent-frame decode *route* on each shard of *blocks*
+    (``shard_spans``) on its own device and join the shards' plaintexts
+    in block order (the JAX ``_merge_sharded_pend``). Returns (device
+    tensors, join)."""
+    tensors, joins = [], []
+    for dev, rows in shard_spans(len(blocks), shards):
+        t, j = route(buf, blocks[rows], bs, window, dev)
+        tensors += t
+        joins.append((j, len(t)))
+
+    def join(fetched):
+        parts, at = [], 0
+        for j, k in joins:
+            parts.append(j(fetched[at: at + k]))
+            at += k
+        return np.concatenate(parts)
+    return tensors, join
+
+
 def _stage_frame(buf, verify_checksum, window, dict_id, device,
-                 engine) -> _DecodeState:
+                 engine, shards: Optional[list] = None) -> _DecodeState:
     """Header, dictionary and block-checksum checks, then queue the decode
-    (device_decompress_frame's order of checks)."""
+    (device_decompress_frame's order of checks). With *shards* (a list of
+    devices, the JAX ``decode_batch`` / ``split_sharded`` hooks of
+    ``ShardedCodec``), an independent frame on the xla engine, or on the
+    split engine with blocks up to 256 KB, decodes each shard of its
+    blocks on its own device; every other frame decodes on *device*."""
     header, blocks, tail = parse_block_index(buf, verify_checksum)
     bs = header["block_max"]
     if header["dict_id"] is not None:
@@ -852,11 +918,22 @@ def _stage_frame(buf, verify_checksum, window, dict_id, device,
             stored = read_u32le(buf, off + size)
             if stored != xxhash32(buf[off: off + size], 0):
                 raise ValueError("LZ4: Block Checksum Error")
+    # Independent-frame routes: each decodes a shard of blocks as it
+    # decodes a whole frame.
+    route = None
+    if header["independent"] and engine in ("xla", "hybrid"):
+        route = _decode_independent_xla
+    elif header["independent"] and engine == "split" and bs <= SPLIT_MAX_BS:
+        route = _decode_independent_split
+    elif header["independent"] and engine == "split" and bs <= WIRE_MAX_BS:
+        route = _decode_wide_split
     if not blocks:
         tensors, join = [], lambda f: np.empty(0, dtype=np.uint8)
-    elif engine in ("xla", "hybrid") and header["independent"]:
-        tensors, join = _decode_independent_xla(buf, blocks, bs, window,
-                                                device)
+    elif route is not None and shards is not None:
+        tensors, join = _sharded_route(route, buf, blocks, bs, window,
+                                       shards)
+    elif route is not None:
+        tensors, join = route(buf, blocks, bs, window, device)
     elif engine in ("xla", "hybrid"):
         tensors, join = _decode_linked_xla(buf, blocks, bs, window, device)
     elif engine == "pallas" and header["independent"]:
@@ -870,11 +947,6 @@ def _stage_frame(buf, verify_checksum, window, dict_id, device,
         tensors, join = _decode_chains_pallas(
             buf, blocks, header, window, device,
             scan=bs > PALLAS_LINKED_MAX_BS)
-    elif header["independent"] and bs <= SPLIT_MAX_BS:
-        tensors, join = _decode_independent_split(buf, blocks, bs, window,
-                                                  device)
-    elif header["independent"] and bs <= WIRE_MAX_BS:
-        tensors, join = _decode_wide_split(buf, blocks, bs, window, device)
     else:
         tensors = [decode_chains(stage_chains(buf, blocks, header, window,
                                               device))]

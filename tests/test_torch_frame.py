@@ -267,7 +267,9 @@ def test_import_leaves_jax_out():
     """The port never imports jax or the JAX package, not even its host
     modules: checked in a fresh interpreter (this test process has jax
     loaded by the suite's conftest) after a CPU round trip on both
-    engines, a hybrid encode and a placed-literal block decode."""
+    engines, a hybrid encode, a placed-literal block decode, a stream
+    round trip with device bursts and a ShardedCodec round trip on both
+    of its engines."""
     code = "\n".join([
         "import sys, numpy as np, divortio_lz4_tpu_torch as pt",
         "data = np.frombuffer(b'port round trip ' * 5000, np.uint8)",
@@ -287,6 +289,16 @@ def test_import_leaves_jax_out():
         "assert not stored",
         "out = sd.decode_block_split_host(f[o: o + n], 65536, device='cpu')",
         "assert out.tobytes() == data[:65536].tobytes()",
+        "enc = pt.LZ4Encoder(cfg, device='cpu')",
+        "big = np.tile(data, 4)   # 4 full blocks: one burst each way",
+        "f = b''.join(enc.add(big)) + b''.join(enc.finish())",
+        "dec = pt.LZ4Decoder(device='cpu')",
+        "assert b''.join(map(bytes, dec.update(f))) == big.tobytes()",
+        "assert enc.stats['device_blocks'] and dec.stats['device_blocks']",
+        "for engine in ('xla', 'best'):",
+        "    c = pt.parallel.ShardedCodec(['cpu'] * 2, engine=engine)",
+        "    assert c.decompress(c.compress(data)).tobytes() == "
+        "data.tobytes()",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'divortio_lz4_tpu'))",
         "assert not bad, bad",
