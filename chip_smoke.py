@@ -149,22 +149,59 @@ which must be exact.
    compact_decode and wire_decode must launch on "best"); the peak device
    memory.
 
+14. The CLI on the card: divortio_lz4_tpu_torch.__main__.main(argv) in
+   this process on a 16 MiB cut of the corpus. --device compress at 64 KB
+   on the split, pallas and hybrid engines, at 256 KB and at the default
+   4 MB (each file == compress_frame of its config and engine), each
+   decoded by decompress --device (split; pallas for the pallas file);
+   the stream path at 64 KB independent and at the default 4 MB linked
+   (each file == a CompressStream frame fed 4 MiB chunks), decoded by the
+   stream path, and the linked file by decompress --device on split and
+   pallas. Every output equals the cut. One `python -m
+   divortio_lz4_tpu_torch compress - | ... decompress -` pipe on 4 MiB.
+   The CLI's own summary lines (MB/s) and every kernel's launches.
+15. MultiHostCodec on the card: one process on ["cuda:0"], the 64 MiB
+   corpus at 64 KB independent blocks: compress_corpus ==
+   ShardedCodec(["cuda:0"]).compress, decompress_corpus exact, MB/s
+   (median of 3) and launches; then two processes (torch.multiprocessing
+   spawn, gloo, both on cuda:0) on 16 MiB: rank 0's stream == the
+   ShardedCodec frames of the two shard_bounds halves joined, both ranks
+   decode it exactly, MB/s from rank 0's clock. A child that fails fails
+   the phase.
+16. The device example (examples/12_torch_device.py, a subprocess) and
+   the host facade on the card machine: pt.compress / pt.decompress on
+   16 MiB (== the engine="pallas" frame at 64 KB independent blocks; the
+   default frame decoded by decompress_frame on the card too),
+   compress_raw / decompress_raw, the string and object helpers,
+   compress_async / decompress_async and LZ4Worker's buffer and stream
+   tasks on the card (== CompressStream frames), and the test vectors of
+   tests/test_golden.py (copied) through the host codec, decompress_frame
+   on the card and a DecompressStream.
+
 Then a JSON line describing the kernels (with each one's bound: the bytes
 the function must move, without row padding or entries it never reads,
 over the H100's 3.35 TB/s; where ms and plain_ms come from different
 inputs, an "inputs" key names both; "launches" counts the frame path's
-run, "path_launches" the runs of phases 12 and 13), and last the device
-line. Any failed check raises and the exit code is non-zero. Needs an
-NVIDIA GPU, nvcc and g++; imports neither jax nor the JAX package.
+run, "path_launches" the runs of phases 12, 13, 14 and 15: "stream",
+"sharded", "cli", "multihost"; every kernel but split_decode must launch
+in phase 14), and last the device line. Any failed check raises and the
+exit code is non-zero. Needs an NVIDIA GPU, nvcc and g++; imports
+neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import contextlib
+import io
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1728,6 +1765,407 @@ def _phase13(torch, pt, dev, corpus, tag) -> dict:
     return launches
 
 
+def _kernel_fns() -> dict:
+    """Every kernel's wrapper by the name the kernels JSON gives it; each
+    counts its launches in ``.launches``."""
+    from divortio_lz4_tpu_torch.ops.compact_decode import decode_blocks_compact
+    from divortio_lz4_tpu_torch.ops.greedy_encode import encode_blocks_pallas
+    from divortio_lz4_tpu_torch.ops.hybrid_encode import hybrid_walk
+    from divortio_lz4_tpu_torch.ops.split_decode import decode_blocks_split
+    from divortio_lz4_tpu_torch.ops.token_decode import (decode_blocks_pallas,
+                                                         decode_token_chains)
+    from divortio_lz4_tpu_torch.ops.wave_decode import decode_chains
+    from divortio_lz4_tpu_torch.ops.wire_decode import decode_blocks_wire
+    return {"compact_decode": decode_blocks_compact,
+            "chain_decode": decode_chains,
+            "wire_decode": decode_blocks_wire,
+            "greedy_encode": encode_blocks_pallas,
+            "token_decode": decode_blocks_pallas,
+            "token_decode_linked": decode_token_chains,
+            "hybrid_encode": hybrid_walk,
+            "split_decode": decode_blocks_split}
+
+
+def _stream_frame(pt, data, cfg, dev, chunk: int) -> bytes:
+    """A CompressStream frame of *data* fed *chunk*-byte pieces."""
+    cs = pt.CompressStream(cfg, device=dev)
+    return b"".join([cs.write(data[i: i + chunk])
+                     for i in range(0, len(data), chunk)] + [cs.flush()])
+
+
+def _cli(argv) -> str:
+    """The port CLI's main(argv) in this process; returns its summary
+    line (stderr)."""
+    from divortio_lz4_tpu_torch.__main__ import main
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"CLI {argv} exited {rc}")
+    return err.getvalue().strip()
+
+
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _phase14(torch, pt, dev, corpus, tag) -> dict:
+    """The CLI on the card (the module docstring's phase 14). Returns every
+    kernel's launches in its in-process runs."""
+    from divortio_lz4_tpu_torch import FrameConfig
+
+    x = corpus[: 16 * MIB]
+    xb = x.tobytes()
+    tdev = ["--torch-device", str(dev)]
+    # (--engine, -b, the --engine of each decompress --device)
+    device_runs = (("split", 65536, ("split",)),
+                   ("pallas", 65536, ("pallas",)),
+                   ("hybrid", 65536, ("split",)),
+                   ("split", 262144, ("split",)),
+                   ("split", 4194304, ("split",)))
+    stream_runs = (("64 KB independent", ["-b", "65536", "--independent",
+                                          "--checksum"],
+                    FrameConfig(block_size=65536, block_independence=True,
+                                content_checksum=True)),
+                   ("default 4 MB linked", ["--checksum"],
+                    FrameConfig(content_checksum=True)))
+    # the frames each CLI file must equal, made before the counts start
+    want = {(engine, bs): pt.compress_frame(x, FrameConfig(
+        block_size=bs, block_independence=True, content_checksum=True),
+        engine=engine, device=dev).tobytes()
+        for engine, bs, _ in device_runs}
+    want.update({name: _stream_frame(pt, x, cfg, dev, 1 << 22)  # CLI reads
+                 for name, _, cfg in stream_runs})
+    fns = _kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "corpus.bin")
+        with open(src, "wb") as f:
+            f.write(xb)
+
+        def decode_exact(path, flags, what):
+            back = os.path.join(tmp, "back.bin")
+            line = _cli(["decompress", path, "-o", back, *flags, *tdev])
+            if _read(back) != xb:
+                raise AssertionError(f"CLI decompress {flags} of {what} "
+                                     "differs from the corpus")
+            return line
+
+        for engine, bs, decoders in device_runs:
+            name = f"{engine} -b {bs}"
+            path = os.path.join(tmp, f"{engine}{bs}.lz4")
+            enc = _cli(["compress", src, "-o", path, "--device", "--engine",
+                        engine, "-b", str(bs), "--checksum", *tdev])
+            if _read(path) != want[engine, bs]:
+                raise AssertionError(f"CLI --device {name} file != "
+                                     "compress_frame's frame")
+            decs = [decode_exact(path, ["--device", "--engine", e], name)
+                    for e in decoders]
+            print(f"phase 14: compress --device --engine {engine} -b {bs} "
+                  f"--checksum == compress_frame, decompress --device "
+                  f"{'/'.join(decoders)} exact: [{enc}] [{'] ['.join(decs)}] "
+                  f"{tag}")
+
+        for name, flags, cfg in stream_runs:
+            path = os.path.join(tmp, "stream.lz4")
+            enc = _cli(["compress", src, "-o", path, *flags, *tdev])
+            if _read(path) != want[name]:
+                raise AssertionError(f"CLI stream {name} file != the "
+                                     "CompressStream frame")
+            routes = ["stream"]
+            decs = [decode_exact(path, [], name)]
+            if not cfg.block_independence:
+                routes += ["--device split", "--device pallas"]
+                decs += [decode_exact(path, ["--device", "--engine", e],
+                                      name) for e in ("split", "pallas")]
+            print(f"phase 14: stream path {name} == a CompressStream frame, "
+                  f"decoded exactly ({', '.join(routes)}): [{enc}] "
+                  f"[{'] ['.join(decs)}] {tag}")
+
+        # the module entry: one pipe of two processes, stdin to stdout
+        small = os.path.join(tmp, "small.bin")
+        with open(small, "wb") as f:
+            f.write(xb[: 4 * MIB])
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        cmd = [sys.executable, "-m", "divortio_lz4_tpu_torch"]
+        with open(small, "rb") as fin:
+            p1 = subprocess.Popen(cmd + ["compress", "-", "-b", "65536",
+                                         "--independent", *tdev],
+                                  stdin=fin, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, env=env)
+            p2 = subprocess.Popen(cmd + ["decompress", "-", *tdev],
+                                  stdin=p1.stdout, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, env=env)
+            p1.stdout.close()
+            try:
+                out, err2 = p2.communicate(timeout=300)
+                err1 = p1.communicate(timeout=300)[1]
+            finally:
+                for p in (p1, p2):
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        if p1.returncode or p2.returncode or out != xb[: 4 * MIB]:
+            raise AssertionError(f"python -m divortio_lz4_tpu_torch pipe: "
+                                 f"rc {p1.returncode}/{p2.returncode}, "
+                                 f"{err1[-2000:]!r} {err2[-2000:]!r}")
+        print(f"phase 14: python -m divortio_lz4_tpu_torch compress - | "
+              f"decompress - on 4 MiB: exact [{err1.decode().strip()}] "
+              f"[{err2.decode().strip()}] {tag}")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    print(f"phase 14: kernel launches in the CLI runs {launches} {tag}")
+    return launches
+
+
+def _mh_rank(rank, port, path, device, out_dir):
+    """One rank of phase 15's two-process run (torch.multiprocessing
+    spawn): gloo from torch's env names, MultiHostCodec on *device*."""
+    import torch
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE="2", RANK=str(rank))
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.parallel.multihost import (
+        MultiHostCodec, maybe_distributed_init)
+    dist = torch.distributed
+    if not maybe_distributed_init():
+        raise AssertionError("maybe_distributed_init() is False")
+    try:
+        data = np.fromfile(path, np.uint8)
+        codec = MultiHostCodec(FrameConfig(block_size=65536,
+                                           block_independence=True),
+                               devices=[device])
+        if (codec.nproc, codec.pid) != (2, rank):
+            raise AssertionError(f"rank {rank}: codec sees "
+                                 f"{codec.nproc, codec.pid}")
+        t_enc, t_dec = [], []
+        for rep in range(4):        # a warm-up, then 3 timed
+            dist.barrier()
+            t0 = time.perf_counter()
+            stream = codec.compress_corpus(data)
+            dist.barrier()
+            t1 = time.perf_counter()
+            obj = [stream]
+            dist.broadcast_object_list(obj, src=0)
+            dist.barrier()
+            t2 = time.perf_counter()
+            plain = codec.decompress_corpus(obj[0])
+            dist.barrier()
+            t3 = time.perf_counter()
+            if (stream is None) != (rank != 0):
+                raise AssertionError(f"rank {rank}: stream {type(stream)}")
+            if plain.tobytes() != data.tobytes():
+                raise AssertionError(f"rank {rank}: decode differs")
+            if rep:
+                t_enc.append(t1 - t0)
+                t_dec.append(t3 - t2)
+        if rank == 0:
+            with open(os.path.join(out_dir, "stream.lz4"), "wb") as f:
+                f.write(obj[0])
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"enc": t_enc, "dec": t_dec}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _phase15(torch, pt, dev, corpus, tag) -> dict:
+    """MultiHostCodec on the card (the module docstring's phase 15).
+    Returns every kernel's launches in the one-process runs."""
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.parallel import MultiHostCodec, ShardedCodec
+    from divortio_lz4_tpu_torch.parallel.multihost import shard_bounds
+
+    n = len(corpus)
+    corpus_b = corpus.tobytes()
+    cfg = FrameConfig(block_size=65536, block_independence=True)
+    codec = MultiHostCodec(cfg, devices=[dev])
+    if (codec.nproc, codec.pid) != (1, 0):
+        raise AssertionError(f"one process: {codec.nproc, codec.pid}")
+    want = ShardedCodec([dev], cfg).compress(corpus).tobytes()
+    codec.decompress_corpus(codec.compress_corpus(corpus[: 8 * MIB]))
+    fns = _kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    t_enc, t_dec = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stream = codec.compress_corpus(corpus)
+        t1 = time.perf_counter()
+        out = codec.decompress_corpus(stream)
+        t2 = time.perf_counter()
+        t_enc.append(t1 - t0)
+        t_dec.append(t2 - t1)
+        if stream != want or out.tobytes() != corpus_b:
+            raise AssertionError("MultiHostCodec one process: stream == "
+                                 f"ShardedCodec {stream == want}, decode "
+                                 f"exact {out.tobytes() == corpus_b}")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    enc_s, dec_s = statistics.median(t_enc), statistics.median(t_dec)
+    print(f"phase 15: MultiHostCodec one process on [{dev}], 64 MiB at 64 KB "
+          f"independent blocks, {len(stream)} B: == ShardedCodec([{dev}]) "
+          f"frame, decoded exactly; encode {n / enc_s / 1e6:.1f} MB/s, "
+          f"decode {n / dec_s / 1e6:.1f} MB/s (median of 3; enc {t_enc}, "
+          f"dec {t_dec} s); launches {launches} {tag}")
+
+    x = corpus[: 16 * MIB]
+    half = shard_bounds(len(x), 2, 0)[1]
+    sc = ShardedCodec([dev], cfg)
+    want2 = sc.compress(x[:half]).tobytes() + sc.compress(x[half:]).tobytes()
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus.bin")
+        x.tofile(path)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.start_processes(_mh_rank, args=(port, path, str(dev), tmp),
+                           nprocs=2, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        got = _read(os.path.join(tmp, "stream.lz4"))
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            times = json.load(f)
+    if got != want2:
+        raise AssertionError("two processes: rank 0's stream != the two "
+                             "shard frames joined")
+    enc_s, dec_s = statistics.median(times["enc"]), \
+        statistics.median(times["dec"])
+    print(f"phase 15: MultiHostCodec two processes (spawn, gloo, both on "
+          f"{dev}), 16 MiB: rank 0's stream ({len(got)} B) == the "
+          f"ShardedCodec frames of the two halves joined; both ranks decode "
+          f"it exactly; encode {len(x) / enc_s / 1e6:.1f} MB/s, decode "
+          f"{len(x) / dec_s / 1e6:.1f} MB/s (rank 0's clock, median of 3; "
+          f"enc {times['enc']}, dec {times['dec']} s); the call took "
+          f"{wall:.1f} s with the processes' start {tag}")
+    return launches
+
+
+# The test vectors of tests/test_golden.py: (hex, plaintext, dictionary).
+def _golden() -> dict:
+    a_block = "1F410100" + "FF" * 256 + "E750" + "41" * 5
+    pat = "4142434445464748494A4B4C4D4E4F50"
+    hello = b"Hello World"
+    return {
+        "hello": ("04224D186040820B00008048656c6c6f20576f726c6400000000",
+                  hello, None),
+        "empty_4mb": ("04224D1860707300000000", b"", None),
+        "hello_ck": ("04224D186440A70B00008048656c6c6f20576f726c6400000000"
+                     "EE16FDB1", hello, None),
+        "multiblock": ("04224D18604082" + ("0B010000" + a_block) * 2
+                       + "00000000", b"A" * 131072, None),
+        "linked_xblock": (
+            "04224D184040C0" + "1B010000" + "FF01" + pat + "1000"
+            + "FF" * 256 + "D850" + "4C4D4E4F50" + "8A000000" + "0F1000"
+            + "FF" * 128 + "6850" + "4C4D4E4F50" + "00000000",
+            b"ABCDEFGHIJKLMNOP" * 6144, None),
+        "dictionary": ("04224D184140FBE517E7080A0000000F400068506263646566"
+                       "00000000", b"0123456789abcdef" * 8,
+                       b"0123456789abcdef" * 4),
+        "block_ck": ("04224D187040AD0B00008048656C6C6F20576F726C64EE16FDB1"
+                     "00000000", hello, None),
+        "mixed_stored": ("04224D18604082" + "0B010000" + a_block
+                         + "1B000080"
+                         + b"incompressible tail bytes!!".hex().upper()
+                         + "00000000",
+                         b"A" * 65536 + b"incompressible tail bytes!!",
+                         None),
+        "content_size": ("04224D1868400B00000000000000580B00008048656C6C6F"
+                         "20576F726C6400000000", hello, None),
+    }
+
+
+def _phase16(torch, pt, dev, corpus, tag):
+    """The device example and the host facade (the module docstring's
+    phase 16)."""
+    from divortio_lz4_tpu_torch import FrameConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, os.path.join(
+        root, "examples", "12_torch_device.py"), "--device", dev.type],
+        capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"examples/12_torch_device.py exited "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    print(f"phase 16: examples/12_torch_device.py --device {dev.type}: "
+          f"exit 0; {' | '.join(res.stdout.strip().splitlines())} {tag}")
+
+    x = corpus[: 16 * MIB]
+    xb = x.tobytes()
+    cfg = FrameConfig(block_size=65536, block_independence=True,
+                      content_checksum=True)
+    t0 = time.perf_counter()
+    f = pt.compress(x, None, cfg)
+    t1 = time.perf_counter()
+    out = pt.decompress(f)
+    t2 = time.perf_counter()
+    if out.tobytes() != xb:
+        raise AssertionError("pt.compress / pt.decompress round trip")
+    if f.tobytes() != pt.compress_frame(x, cfg, engine="pallas",
+                                        device=dev).tobytes():
+        raise AssertionError("pt.compress != the engine='pallas' frame")
+    default = pt.compress(x)
+    if pt.decompress(default).tobytes() != xb or \
+            pt.decompress_frame(default, device=dev).tobytes() != xb:
+        raise AssertionError("the default host frame does not decode")
+    block = pt.compress_raw(x[:65536])
+    if pt.decompress_raw(block, 65536).tobytes() != xb[:65536]:
+        raise AssertionError("compress_raw / decompress_raw round trip")
+    text = xb[:100_000].decode("latin-1")
+    obj = {"rows": [text[i: i + 100] for i in range(0, 5000, 100)]}
+    if pt.decompress_string(pt.compress_string(text)) != text or \
+            pt.decompress_object(pt.compress_object(obj)) != obj:
+        raise AssertionError("string / object helpers round trip")
+    print(f"phase 16: host codec, 16 MiB at 64 KB independent blocks: "
+          f"pt.compress {len(x) / (t1 - t0) / 1e6:.1f} MB/s (== the "
+          f"engine='pallas' frame), pt.decompress "
+          f"{len(x) / (t2 - t1) / 1e6:.1f} MB/s (host clock, one call "
+          f"each); the default frame decoded by pt.decompress and "
+          f"decompress_frame; raw block, string and object round trips "
+          f"{tag}")
+
+    want = _stream_frame(pt, x, cfg, dev, 4 * MIB)
+    got = asyncio.run(pt.compress_async(x, config=cfg, chunk_size=4 * MIB,
+                                        device=dev))
+    back = asyncio.run(pt.decompress_async(got, chunk_size=4 * MIB,
+                                           device=dev))
+    if got != want or back != xb:
+        raise AssertionError(f"compress_async == stream frame {got == want}"
+                             f", decompress_async exact {back == xb}")
+    chunks = [xb[i: i + 4 * MIB] for i in range(0, len(xb), 4 * MIB)]
+    w = pt.LZ4Worker
+    if w.compress(x, config=cfg).result(timeout=300).tobytes() != \
+            f.tobytes() or w.decompress(f).result(timeout=300).tobytes() \
+            != xb:
+        raise AssertionError("LZ4Worker buffer tasks")
+    ws = w.compress_stream(chunks, config=cfg, device=dev).result(
+        timeout=300)
+    wd = w.decompress_stream([ws[i: i + 4 * MIB]
+                              for i in range(0, len(ws), 4 * MIB)],
+                             device=dev).result(timeout=300)
+    if ws != want or wd != xb:
+        raise AssertionError(f"LZ4Worker streams: frame {ws == want}, "
+                             f"decode {wd == xb}")
+    print(f"phase 16: compress_async / decompress_async and LZ4Worker's "
+          f"buffer and stream tasks on {dev}: frames == the CompressStream "
+          f"frame ({len(want)} B), decoded exactly {tag}")
+
+    for name, (hexs, plain, d) in _golden().items():
+        frame = np.frombuffer(bytes.fromhex(hexs), np.uint8)
+        host = pt.decompress(frame, d).tobytes()
+        card = pt.decompress_frame(frame, dictionary=d, device=dev).tobytes()
+        ds = pt.DecompressStream(d, device=dev)
+        stream = ds.write(frame.tobytes()) + ds.flush()
+        if not host == card == stream == plain:
+            raise AssertionError(f"test vector {name}: host {host == plain}"
+                                 f", card {card == plain}, stream "
+                                 f"{stream == plain}")
+    print(f"phase 16: the {len(_golden())} test vectors of "
+          f"tests/test_golden.py decode exactly through pt.decompress, "
+          f"decompress_frame on {dev} and a DecompressStream {tag}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0x51E51A)
@@ -1900,6 +2338,9 @@ def main() -> int:
     _phase11(torch, pt, dev, corpus, ref_frame, card, tag)
     stream_launches = _phase12(torch, pt, dev, corpus, args.seed, tag)
     sharded_launches = _phase13(torch, pt, dev, corpus, tag)
+    cli_launches = _phase14(torch, pt, dev, corpus, tag)
+    multihost_launches = _phase15(torch, pt, dev, corpus, tag)
+    _phase16(torch, pt, dev, corpus, tag)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "divortio_lz4_tpu"))
@@ -1952,10 +2393,16 @@ def main() -> int:
                  library_ms=None,
                  path_launches={"stream": stream_launches.get(k["name"], 0),
                                 "sharded": sharded_launches.get(k["name"],
-                                                                0)})
+                                                                0),
+                                "cli": cli_launches[k["name"]],
+                                "multihost": multihost_launches[k["name"]]})
         if k["launches"] < 1 or k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: launches {k['launches']}, "
                                  f"max_abs_err {k['max_abs_err']}")
+        # split_decode has no frame route, in either package
+        if k["name"] != "split_decode" and cli_launches[k["name"]] < 1:
+            raise AssertionError(f"{k['name']}: no launch in the CLI runs "
+                                 "of phase 14")
     print(json.dumps({"kernels": [{key: k[key] for key in keys
                                    + ("path_launches",)
                                    + (("inputs",) if "inputs" in k else ())}

@@ -53,6 +53,13 @@ def block_bound(n: int) -> int:
     return n + (n // 255) + 16
 
 
+def frame_bound(n: int, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
+    """Worst-case whole-frame size for an n-byte payload."""
+    nblocks = max(1, -(-n // block_size))
+    # max header: magic(4)+FLG(1)+BD(1)+size(8)+dictId(4)+HC(1) = 19
+    return 19 + nblocks * 4 + n + (n // 255) + 16 * nblocks + 4 + 4
+
+
 def get_block_id(nbytes: int) -> int:
     """Quantize a requested max block size to an LZ4 BD id (4..7)."""
     if not nbytes or nbytes <= 65536:

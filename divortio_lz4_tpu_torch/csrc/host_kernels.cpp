@@ -11,13 +11,19 @@
 //   lz4t_warm_table          (:119)  dictionary warm-up of the hash table
 //   lz4t_compress_frame_body (:260)  the host frame encoder's block loop,
 //                                    over compress_block_core (:136)
+//   lz4t_compress_frame_body_mt (:308) its independent frames on threads
 //   lz4t_xxh32_round4        (:88)   the streaming hasher's bulk stripes
 //   lz4t_compress_block      (:241)  one block, the stream's host codec
 //   lz4t_decompress_block    (:408)  one block with a dictionary
+//   lz4t_decompress_frame_body (:547) the host frame decoder's block loop
+//   lz4t_decompress_frame_body_mt (:607) its independent frames on threads
 // Built with g++ at first use by divortio_lz4_tpu_torch/_build.py.
 
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <thread>
+#include <vector>
 
 extern "C" {
 
@@ -113,6 +119,7 @@ static const int64_t ERR_OUTPUT_SMALL = -1;   // "Output Buffer Too Small"
 static const int64_t ERR_MALFORMED = -2;      // "Malformed Input"
 static const int64_t ERR_OFFSET0 = -3;        // "Invalid Offset 0"
 static const int64_t ERR_DICT_OOB = -4;       // "Dictionary Offset Out of Bounds"
+static const int64_t ERR_BLOCK_CK = -5;       // "Block Checksum Error"
 
 // ---------------------------------------------------------------------------
 // Piece scan
@@ -721,6 +728,96 @@ int64_t lz4t_compress_frame_body(const uint8_t* __restrict src,
   return pos - dst_off;
 }
 
+// Independent frames on several threads: blocks compress at once into
+// per-block scratch, then are stitched in order into the serial path's
+// exact wire bytes. Block 0 uses the caller's (possibly dictionary-warmed)
+// table; later blocks start from a cleared table, as the serial path's
+// per-block clear leaves them.
+int64_t lz4t_compress_frame_body_mt(const uint8_t* __restrict src,
+                                    int64_t input_start, int64_t total_end,
+                                    uint8_t* __restrict dst, int64_t dst_off,
+                                    int64_t block_size,
+                                    int32_t* __restrict table,
+                                    int32_t block_checksums,
+                                    int32_t nthreads) {
+  const int64_t n = total_end - input_start;
+  const int64_t nblocks = n > 0 ? (n + block_size - 1) / block_size : 0;
+  if (nthreads < 2 || nblocks < 2) {
+    return lz4t_compress_frame_body(src, input_start, total_end, dst,
+                                    dst_off, block_size, table, 1,
+                                    block_checksums);
+  }
+  if (nthreads > nblocks) nthreads = (int32_t)nblocks;
+
+  // Per-block scratch at a fixed stride (worst-case bound + wild slack).
+  const int64_t stride = block_size + block_size / 255 + 16 + 16;
+  uint8_t* scratch = (uint8_t*)std::malloc((size_t)(nblocks * stride));
+  int64_t* comp_sizes = (int64_t*)std::malloc(nblocks * sizeof(int64_t));
+  if (!scratch || !comp_sizes) {
+    std::free(scratch); std::free(comp_sizes);
+    return lz4t_compress_frame_body(src, input_start, total_end, dst,
+                                    dst_off, block_size, table, 1,
+                                    block_checksums);
+  }
+
+  auto worker = [&](int t) {
+    std::vector<int32_t> local(HASH_MASK + 1);
+    for (int64_t b = t; b < nblocks; b += nthreads) {
+      int64_t s0 = input_start + b * block_size;
+      int64_t end = s0 + block_size;
+      if (end > total_end) end = total_end;
+      int32_t* tb;
+      if (b == 0) {
+        tb = table;  // dictionary-warmed state, exactly as the serial path
+      } else {
+        std::memset(local.data(), 0, (HASH_MASK + 1) * sizeof(int32_t));
+        tb = local.data();
+      }
+      comp_sizes[b] = compress_block_core(src, scratch + b * stride, s0,
+                                          end - s0, tb, 0, 1);
+    }
+  };
+  std::vector<std::thread> threads;
+  for (int t = 1; t < nthreads; t++) threads.emplace_back(worker, t);
+  worker(0);
+  for (auto& th : threads) th.join();
+
+  // Serial stitch into the spec wire layout.
+  int64_t pos = dst_off;
+  for (int64_t b = 0; b < nblocks; b++) {
+    int64_t s0 = input_start + b * block_size;
+    int64_t end = s0 + block_size;
+    if (end > total_end) end = total_end;
+    int64_t bsize = end - s0;
+    int64_t comp = comp_sizes[b];
+    int64_t size_pos = pos;
+    pos += 4;
+    if (comp > 0 && comp < bsize) {
+      uint32_t w = (uint32_t)comp;
+      std::memcpy(dst + size_pos, &w, 4);
+      std::memcpy(dst + pos, scratch + b * stride, (size_t)comp);
+      pos += comp;
+    } else {
+      uint32_t w = (uint32_t)bsize | 0x80000000u;
+      std::memcpy(dst + size_pos, &w, 4);
+      std::memcpy(dst + pos, src + s0, (size_t)bsize);
+      pos += bsize;
+    }
+    if (block_checksums) {
+      uint32_t ck = lz4t_xxhash32(dst + size_pos + 4,
+                                  pos - (size_pos + 4), 0);
+      std::memcpy(dst + pos, &ck, 4);
+      pos += 4;
+    }
+  }
+  uint32_t zero = 0;
+  std::memcpy(dst + pos, &zero, 4);  // EndMark
+  pos += 4;
+  std::free(scratch);
+  std::free(comp_sizes);
+  return pos - dst_off;
+}
+
 // One block through compress_block_core without wild copies: dst needs
 // only block_bound(src_len) bytes past dst_off. Returns bytes written.
 int64_t lz4t_compress_block(const uint8_t* src, uint8_t* dst,
@@ -862,6 +959,173 @@ int64_t lz4t_decompress_block(const uint8_t* src, int64_t src_off,
     }
   }
   return o - dst_off;
+}
+
+// A whole frame body, direct-write, in one call: size words, stored
+// blocks, block checksums verified before a block is read, EndMark; the
+// error order of frame.py's per-block loop. Independent blocks reference
+// the dictionary only (the window resets at each block); linked blocks
+// reference earlier output and the dictionary below it. Returns the
+// plaintext bytes written to result, or an error code; *wire_end_out gets
+// the wire position just past the EndMark.
+int64_t lz4t_decompress_frame_body(const uint8_t* __restrict buf,
+                                   int64_t pos, int64_t n,
+                                   uint8_t* __restrict result,
+                                   int64_t result_cap,
+                                   const uint8_t* dict, int64_t dict_len,
+                                   int32_t independent,
+                                   int32_t block_checksums,
+                                   int32_t verify,
+                                   int64_t* wire_end_out) {
+  int64_t result_pos = 0;
+  while (pos < n) {
+    if (pos + 4 > n) return ERR_MALFORMED;
+    uint32_t word;
+    std::memcpy(&word, buf + pos, 4);
+    pos += 4;
+    if (word == 0) break;  // EndMark
+    int64_t bsize = word & 0x7FFFFFFF;
+    int stored = (word & 0x80000000u) != 0;
+    if (pos + bsize > n) return ERR_MALFORMED;
+
+    if (block_checksums) {
+      if (pos + bsize + 4 > n) return ERR_MALFORMED;
+      if (verify) {
+        uint32_t stored_ck;
+        std::memcpy(&stored_ck, buf + pos + bsize, 4);
+        if (stored_ck != lz4t_xxhash32(buf + pos, bsize, 0))
+          return ERR_BLOCK_CK;
+      }
+    }
+
+    if (stored) {
+      if (result_pos + bsize > result_cap) return ERR_OUTPUT_SMALL;
+      std::memcpy(result + result_pos, buf + pos, (size_t)bsize);
+      result_pos += bsize;
+    } else if (independent) {
+      int64_t rc = lz4t_decompress_block(buf, pos, bsize,
+                                         result + result_pos,
+                                         result_cap - result_pos, 0,
+                                         dict, dict_len);
+      if (rc < 0) return rc;
+      result_pos += rc;
+    } else {
+      int64_t rc = lz4t_decompress_block(buf, pos, bsize, result, result_cap,
+                                         result_pos, dict, dict_len);
+      if (rc < 0) return rc;
+      result_pos += rc;
+    }
+    pos += bsize;
+    if (block_checksums) pos += 4;
+  }
+  *wire_end_out = pos;
+  return result_pos;
+}
+
+// Independent frames on several threads: a serial scan of the block
+// table, the blocks decoded at once into scratch (each block's window is
+// the dictionary only), then stitched in order; the serial path's bytes.
+// block_max is the BD byte's block maximum; a block that decodes past it
+// sends the frame to the serial path.
+int64_t lz4t_decompress_frame_body_mt(const uint8_t* __restrict buf,
+                                      int64_t pos, int64_t n,
+                                      uint8_t* __restrict result,
+                                      int64_t result_cap,
+                                      const uint8_t* dict, int64_t dict_len,
+                                      int64_t block_max,
+                                      int32_t block_checksums,
+                                      int32_t verify,
+                                      int32_t nthreads,
+                                      int64_t* wire_end_out) {
+  // Serial block-table scan.
+  std::vector<int64_t> offs, sizes;
+  std::vector<uint8_t> stored_v;
+  int64_t scan = pos;
+  while (scan < n) {
+    if (scan + 4 > n) return ERR_MALFORMED;
+    uint32_t word;
+    std::memcpy(&word, buf + scan, 4);
+    scan += 4;
+    if (word == 0) break;
+    int64_t bsize = word & 0x7FFFFFFF;
+    if (scan + bsize + (block_checksums ? 4 : 0) > n) return ERR_MALFORMED;
+    offs.push_back(scan);
+    sizes.push_back(bsize);
+    stored_v.push_back((word & 0x80000000u) != 0);
+    scan += bsize + (block_checksums ? 4 : 0);
+  }
+  const int64_t nblocks = (int64_t)offs.size();
+  if (nthreads < 2 || nblocks < 2) {
+    return lz4t_decompress_frame_body(buf, pos, n, result, result_cap, dict,
+                                      dict_len, 1, block_checksums, verify,
+                                      wire_end_out);
+  }
+  if (nthreads > nblocks) nthreads = (int32_t)nblocks;
+
+  uint8_t* scratch = (uint8_t*)std::malloc((size_t)(nblocks * block_max));
+  int64_t* dec_sizes = (int64_t*)std::malloc(nblocks * sizeof(int64_t));
+  if (!scratch || !dec_sizes) {
+    std::free(scratch); std::free(dec_sizes);
+    return lz4t_decompress_frame_body(buf, pos, n, result, result_cap, dict,
+                                      dict_len, 1, block_checksums, verify,
+                                      wire_end_out);
+  }
+
+  std::vector<int64_t> errs(nthreads, 0);
+  auto worker = [&](int t) {
+    for (int64_t b = t; b < nblocks; b += nthreads) {
+      if (block_checksums && verify) {
+        uint32_t stored_ck;
+        std::memcpy(&stored_ck, buf + offs[b] + sizes[b], 4);
+        if (stored_ck != lz4t_xxhash32(buf + offs[b], sizes[b], 0)) {
+          errs[t] = ERR_BLOCK_CK;
+          return;
+        }
+      }
+      if (stored_v[b]) {
+        dec_sizes[b] = sizes[b];  // stitched straight from buf
+        if (sizes[b] > block_max) { errs[t] = ERR_OUTPUT_SMALL; return; }
+        continue;
+      }
+      int64_t rc = lz4t_decompress_block(buf, offs[b], sizes[b],
+                                         scratch + b * block_max, block_max,
+                                         0, dict, dict_len);
+      if (rc < 0) { errs[t] = rc; return; }
+      dec_sizes[b] = rc;
+    }
+  };
+  std::vector<std::thread> threads;
+  for (int t = 1; t < nthreads; t++) threads.emplace_back(worker, t);
+  worker(0);
+  for (auto& th : threads) th.join();
+
+  int64_t err = 0;
+  for (int t = 0; t < nthreads; t++) if (errs[t] < 0) err = errs[t];
+  if (err == ERR_OUTPUT_SMALL) {
+    // A block larger than the BD block maximum: out-of-spec but the serial
+    // path tolerates it when the result buffer has room — retry serially.
+    std::free(scratch); std::free(dec_sizes);
+    return lz4t_decompress_frame_body(buf, pos, n, result, result_cap, dict,
+                                      dict_len, 1, block_checksums, verify,
+                                      wire_end_out);
+  }
+  if (err < 0) { std::free(scratch); std::free(dec_sizes); return err; }
+
+  int64_t result_pos = 0;
+  for (int64_t b = 0; b < nblocks; b++) {
+    if (result_pos + dec_sizes[b] > result_cap) {
+      std::free(scratch); std::free(dec_sizes);
+      return ERR_OUTPUT_SMALL;
+    }
+    const uint8_t* srcp = stored_v[b] ? buf + offs[b]
+                                      : scratch + b * block_max;
+    std::memcpy(result + result_pos, srcp, (size_t)dec_sizes[b]);
+    result_pos += dec_sizes[b];
+  }
+  std::free(scratch);
+  std::free(dec_sizes);
+  *wire_end_out = scan;
+  return result_pos;
 }
 
 }  // extern "C"

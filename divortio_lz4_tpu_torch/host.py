@@ -5,8 +5,9 @@ The wrappers and the error table are copies of
 ``scan_pieces_native``, ``parse_records_native``, ``parse_records2_native``,
 ``chain_serialize16_native``, ``chain_serialize16_meta_native``,
 ``warm_table_native``, ``compress_frame_body_native``,
-``xxh32_round4_native``, ``compress_block_native``,
-``decompress_block_native``). The
+``decompress_frame_body_native``, ``xxh32_round4_native``,
+``compress_block_native``, ``decompress_block_native``), with JAX's
+``_nthreads`` rule (``LZ4T_THREADS``, default min(cores, 16)). The
 library is built with g++ at its first use (``_build.py``), never at
 import. Every function validates its buffers in Python before passing
 pointers, and raises "LZ4: ..." ValueErrors on the C error codes.
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 
@@ -33,7 +35,7 @@ _ERRORS = {
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("host_kernels")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     lib.lz4t_xxhash32.restype = ctypes.c_uint32
     lib.lz4t_xxhash32.argtypes = [p, i64, ctypes.c_uint32]
     lib.lz4t_scan_pieces.restype = i64
@@ -54,6 +56,17 @@ def _lib() -> ctypes.CDLL:
     lib.lz4t_compress_frame_body.restype = i64
     lib.lz4t_compress_frame_body.argtypes = [p, i64, i64, p, i64, i64, p,
                                              ctypes.c_int32, ctypes.c_int32]
+    lib.lz4t_compress_frame_body_mt.restype = i64
+    lib.lz4t_compress_frame_body_mt.argtypes = [p, i64, i64, p, i64, i64,
+                                                p, i32, i32]
+    lib.lz4t_decompress_frame_body.restype = i64
+    lib.lz4t_decompress_frame_body.argtypes = [p, i64, i64, p, i64, p, i64,
+                                               i32, i32, i32,
+                                               ctypes.POINTER(i64)]
+    lib.lz4t_decompress_frame_body_mt.restype = i64
+    lib.lz4t_decompress_frame_body_mt.argtypes = [p, i64, i64, p, i64, p,
+                                                  i64, i64, i32, i32, i32,
+                                                  ctypes.POINTER(i64)]
     lib.lz4t_xxh32_round4.restype = None
     lib.lz4t_xxh32_round4.argtypes = [p, p, i64]
     lib.lz4t_compress_block.restype = i64
@@ -191,6 +204,15 @@ def warm_table_native(table: np.ndarray, buf: np.ndarray, limit: int) -> None:
     _lib().lz4t_warm_table(_ptr(table), _ptr(buf), limit)
 
 
+def _nthreads() -> int:
+    """Threads of the whole-frame loops: LZ4T_THREADS, else min(cores,
+    16)."""
+    env = os.environ.get("LZ4T_THREADS")
+    if env is not None:
+        return max(1, int(env))
+    return min(os.cpu_count() or 1, 16)
+
+
 def compress_frame_body_native(working: np.ndarray, input_start: int,
                                total_end: int, out: np.ndarray, dst_off: int,
                                block_size: int, table: np.ndarray,
@@ -198,10 +220,12 @@ def compress_frame_body_native(working: np.ndarray, input_start: int,
                                block_checksums: bool) -> int:
     """Every block of a frame in one native call (see
     lz4t_compress_frame_body): size words, greedy blocks or their stored
-    fallback, block checksums, the EndMark. *working* = [dictionary |
-    payload] with >= 16 readable bytes past total_end (the literal copies
-    run in 16-byte chunks); *out* holds the body's worst case plus 16 bytes
-    past dst_off. Returns bytes written."""
+    fallback, block checksums, the EndMark. Independent frames compress
+    their blocks on ``_nthreads()`` threads (lz4t_compress_frame_body_mt,
+    the serial path's bytes). *working* = [dictionary | payload] with >= 16
+    readable bytes past total_end (the literal copies run in 16-byte
+    chunks); *out* holds the body's worst case plus 16 bytes past dst_off.
+    Returns bytes written."""
     if working.dtype != np.uint8 or not working.flags.c_contiguous \
             or len(working) < total_end + 16:
         raise ValueError("working must be contiguous uint8 with 16 readable "
@@ -215,9 +239,51 @@ def compress_frame_body_native(working: np.ndarray, input_start: int,
     if out.dtype != np.uint8 or not out.flags.c_contiguous \
             or len(out) - dst_off < need:
         raise ValueError(f"out needs {need} bytes past dst_off")
+    if independent:
+        return int(_lib().lz4t_compress_frame_body_mt(
+            _ptr(working), input_start, total_end, _ptr(out), dst_off,
+            block_size, _ptr(table), int(block_checksums), _nthreads()))
     return int(_lib().lz4t_compress_frame_body(
         _ptr(working), input_start, total_end, _ptr(out), dst_off,
-        block_size, _ptr(table), int(independent), int(block_checksums)))
+        block_size, _ptr(table), 0, int(block_checksums)))
+
+
+def decompress_frame_body_native(buf: np.ndarray, pos: int, n: int,
+                                 result: np.ndarray, dictionary,
+                                 independent: bool, block_checksums: bool,
+                                 verify: bool,
+                                 block_max: int = 4194304) -> tuple[int, int]:
+    """Every block of a frame, direct-write, in one native call (see
+    lz4t_decompress_frame_body) into *result*, sized by the frame's
+    content size. Independent frames decode their blocks on threads when
+    ``_nthreads()`` is 4 or more (below that the extra scratch pass loses,
+    as JAX measured). Returns (plaintext bytes, wire position past the
+    EndMark); raises the host error taxonomy."""
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    if result.dtype != np.uint8 or not result.flags.c_contiguous \
+            or not result.flags.writeable:
+        raise ValueError("result must be a writable contiguous uint8 array")
+    if not 0 <= pos <= n <= len(buf):
+        raise ValueError(f"need 0 <= pos <= n <= {len(buf)}")
+    if dictionary is not None:
+        dictionary = np.ascontiguousarray(dictionary, dtype=np.uint8)
+        dptr, dlen = _ptr(dictionary), len(dictionary)
+    else:
+        dptr, dlen = None, 0
+    wire_end = ctypes.c_int64(pos)
+    if independent and _nthreads() >= 4:
+        rc = int(_lib().lz4t_decompress_frame_body_mt(
+            _ptr(buf), pos, n, _ptr(result), len(result), dptr, dlen,
+            block_max, int(block_checksums), int(verify), _nthreads(),
+            ctypes.byref(wire_end)))
+    else:
+        rc = int(_lib().lz4t_decompress_frame_body(
+            _ptr(buf), pos, n, _ptr(result), len(result), dptr, dlen,
+            int(independent), int(block_checksums), int(verify),
+            ctypes.byref(wire_end)))
+    if rc < 0:
+        raise ValueError(_ERRORS.get(rc, f"LZ4: native error {rc}"))
+    return rc, int(wire_end.value)
 
 
 def xxh32_round4_native(v1, v2, v3, v4, words: np.ndarray):

@@ -1,8 +1,8 @@
 """Host helpers: input coercion, little-endian words, the shared host pool.
 
-``ensure_buffer``, ``read_u32le`` and ``write_u32le`` are copies of
-``divortio_lz4_tpu/utils/buffers.py``; ``host_pool`` is a copy of
-``divortio_lz4_tpu/utils/pool.py``.
+``ensure_buffer``, ``concat_bytes``, ``read_u32le`` and ``write_u32le``
+are copies of ``divortio_lz4_tpu/utils/buffers.py``; ``host_pool`` is a
+copy of ``divortio_lz4_tpu/utils/pool.py``.
 """
 
 from __future__ import annotations
@@ -48,6 +48,12 @@ def ensure_buffer(data: Any) -> np.ndarray:
         "LZ4: Input must be bytes, str, array, memoryview, list, or a "
         "JSON-serializable object"
     )
+
+
+def concat_bytes(chunks) -> bytes:
+    """Join a list of byte-like chunks into one bytes object."""
+    return b"".join(bytes(c) if not isinstance(c, (bytes, bytearray)) else c
+                    for c in chunks)
 
 
 def read_u32le(buf, pos: int) -> int:

@@ -313,13 +313,14 @@ def _port_sources():
                                           "**", "*.py"), recursive=True))
     return files + [os.path.join(REPO, name) for name in
                     ("chip_smoke.py", "chip_breakdown.py",
-                     "chip_decode_steps.py")]
+                     "chip_decode_steps.py",
+                     os.path.join("examples", "12_torch_device.py"))]
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port, nor the chip_*.py scripts at the root,
-    imports jax or the JAX package, anywhere in the file (an AST scan, so
-    imports inside functions count too)."""
+    """No module of the port, nor the chip_*.py scripts at the root, nor
+    the port's device example, imports jax or the JAX package, anywhere
+    in the file (an AST scan, so imports inside functions count too)."""
     bad = []
     for path in _port_sources():
         with open(path) as f:
