@@ -177,14 +177,24 @@ which must be exact.
    tasks on the card (== CompressStream frames), and the test vectors of
    tests/test_golden.py (copied) through the host codec, decompress_frame
    on the card and a DecompressStream.
+17. ops/linked_xla.encode_linked_scan on the card: its rows for 16 MiB of
+   the corpus at 64 KB linked blocks equal the blocks of the
+   engine="xla" linked frame (a block the frame stores has no smaller
+   row); 4 MiB in uneven rows (1, 13 and 100 bytes, one empty row) from a
+   40 KB dictionary window and 4 MiB at 256 KB rows, each equal on the
+   card and on the CPU, element for element. Then the one-block helpers
+   on 32 corpus blocks of 64 KB: encode_block_pallas_host == compress_raw
+   and decode_block_pallas_host round trips, with and without 64 KB of
+   history, one kernel launch a call (greedy_encode 32, token_decode 64,
+   no other kernel). ms and MB/s of each step on the host clock.
 
 Then a JSON line describing the kernels (with each one's bound: the bytes
 the function must move, without row padding or entries it never reads,
 over the H100's 3.35 TB/s; where ms and plain_ms come from different
 inputs, an "inputs" key names both; "launches" counts the frame path's
-run, "path_launches" the runs of phases 12, 13, 14 and 15: "stream",
-"sharded", "cli", "multihost"; every kernel but split_decode must launch
-in phase 14), and last the device line. Any failed check raises and the
+run, "path_launches" the runs of phases 12, 13, 14, 15 and 17: "stream",
+"sharded", "cli", "multihost", "helpers"; every kernel but split_decode
+must launch in phase 14), and last the device line. Any failed check raises and the
 exit code is non-zero. Needs an NVIDIA GPU, nvcc and g++; imports
 neither jax nor the JAX package.
 """
@@ -209,6 +219,7 @@ import numpy as np
 
 MIB = 1 << 20
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM HBM3, 3.35 TB/s (NVIDIA data sheet)
+HELPER_BLOCKS = 32          # phase 17's blocks through the one-block helpers
 CUDA_SOURCES = ("compact_decode", "chain_decode", "greedy_encode",
                 "token_decode", "split_decode")
 
@@ -2166,6 +2177,163 @@ def _phase16(torch, pt, dev, corpus, tag):
           f"decompress_frame on {dev} and a DecompressStream {tag}")
 
 
+def _clock(torch, dev, fn):
+    """(fn(), milliseconds of that one call on the host clock, the device
+    synchronised on both sides)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _uneven_lengths(total: int, seed: int) -> list:
+    """Row lengths of at most 64 KB summing to *total*: random ones, three
+    short rows (1, 13, 100 bytes) and one empty row in the middle."""
+    rng = np.random.default_rng(seed)
+    lens = [1, 13, 100]
+    while sum(lens) < total:
+        lens.append(int(rng.integers(1000, 65537)))
+    lens[-1] -= sum(lens) - total
+    lens.insert(len(lens) // 2, 0)
+    return lens
+
+
+def _phase17(torch, pt, dev, corpus, tag) -> dict:
+    """encode_linked_scan and the one-block kernel helpers (the module
+    docstring's phase 17). Returns the kernels' launches in the helper
+    runs."""
+    from divortio_lz4_tpu_torch import FrameConfig
+    from divortio_lz4_tpu_torch.backends import get_backend
+    from divortio_lz4_tpu_torch.ops.block_ref import new_hash_table
+    from divortio_lz4_tpu_torch.ops.greedy_encode import \
+        encode_block_pallas_host
+    from divortio_lz4_tpu_torch.ops.linked_xla import encode_linked_scan
+    from divortio_lz4_tpu_torch.ops.token_decode import \
+        decode_block_pallas_host
+
+    W = 65536
+    cpu = torch.device("cpu")
+
+    # the scan's rows == the linked 64 KB engine="xla" frame's blocks
+    x = np.ascontiguousarray(corpus[: 16 * MIB])
+    nb = len(x) // W
+    rows = torch.from_numpy(x.reshape(nb, W)).to(dev)
+    lens = torch.full((nb,), W, dtype=torch.int64, device=dev)
+    zeros = torch.zeros(W, dtype=torch.uint8, device=dev)
+    encode_linked_scan(rows[:2], lens[:2], zeros, 0, W)      # warm-up
+    (out, out_lens), scan_ms = _clock(
+        torch, dev, lambda: encode_linked_scan(rows, lens, zeros, 0, W))
+    cfg = FrameConfig(block_size=W, block_independence=False)
+    frame, frame_ms = _clock(torch, dev, lambda: pt.compress_frame(
+        x, cfg, engine="xla", device=dev))
+    _, blocks, _ = pt.parallel.parse_block_index(frame)
+    out, out_lens = out.cpu().numpy(), out_lens.cpu().numpy()
+    if len(blocks) != nb:
+        raise AssertionError(f"the xla frame has {len(blocks)} blocks, "
+                             f"not {nb}")
+    n_stored = 0
+    for i, (off, size, stored) in enumerate(blocks):
+        n = int(out_lens[i])
+        if stored:
+            n_stored += 1
+            if 0 < n < W:
+                raise AssertionError(f"block {i}: stored in the frame, but "
+                                     f"the scan's {n} bytes are smaller")
+        elif n != size or not np.array_equal(out[i, :n],
+                                             frame[off: off + size]):
+            raise AssertionError(f"block {i}: the scan's row ({n} B) != "
+                                 f"the frame's block ({size} B)")
+    print(f"phase 17: encode_linked_scan on 16 MiB at 64 KB linked blocks "
+          f"({nb} rows) == the engine='xla' frame's blocks ({n_stored} "
+          f"stored); scan {scan_ms:.1f} ms ({len(x) / scan_ms / 1e3:.1f} "
+          f"MB/s), compress_frame {frame_ms:.1f} ms "
+          f"({len(x) / frame_ms / 1e3:.1f} MB/s), host clock {tag}")
+
+    # the card's rows == the CPU's: uneven rows from a 40 KB dictionary
+    # window (noise left of it), and 256 KB rows
+    rng = np.random.default_rng(17)
+    y = corpus[16 * MIB: 20 * MIB]
+    cases = []
+    lengths = _uneven_lengths(len(y), 17)
+    blocks_a = np.zeros((len(lengths), W), np.uint8)
+    at = 0
+    for i, n in enumerate(lengths):
+        blocks_a[i, :n] = y[at: at + n]
+        at += n
+    window = rng.integers(0, 256, W).astype(np.uint8)
+    window[W - 40960:] = corpus[30 * MIB: 30 * MIB + 40960]
+    cases.append(("4 MiB in uneven rows (1, 13, 100 B and one empty), "
+                  "40 KB dictionary", blocks_a, np.array(lengths), window,
+                  40960, W))
+    bs = 262144
+    cases.append(("4 MiB at 256 KB rows", y.reshape(-1, bs),
+                  np.full(len(y) // bs, bs), np.zeros(W, np.uint8), 0, bs))
+    for what, b, ln, win, filled, width in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(b)),
+                torch.from_numpy(ln.astype(np.int64)), torch.from_numpy(win)]
+        got, card_ms = _clock(torch, dev, lambda: encode_linked_scan(
+            *[a.to(dev) for a in args], filled, width))
+        want, cpu_ms = _clock(torch, cpu, lambda: encode_linked_scan(
+            *args, filled, width))
+        if not (torch.equal(got[0].cpu(), want[0])
+                and torch.equal(got[1].cpu(), want[1])):
+            raise AssertionError(f"encode_linked_scan, {what}: card != CPU")
+        print(f"phase 17: encode_linked_scan, {what}: {len(ln)} rows, card "
+              f"== CPU element for element; card {card_ms:.1f} ms "
+              f"({len(y) / card_ms / 1e3:.1f} MB/s), CPU {cpu_ms:.1f} ms, "
+              f"host clock {tag}")
+
+    # the one-block helpers: one launch a call, exact bytes
+    fns = _kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    be = get_backend()
+    enc_ms = dec_ms = hist_ms = 0.0
+    for i in range(HELPER_BLOCKS):
+        data = corpus[(40 + i) * W: (41 + i) * W]
+        hist = corpus[(39 + i) * W: (40 + i) * W]
+        comp, ms = _clock(torch, dev, lambda: encode_block_pallas_host(
+            data, device=dev))
+        enc_ms += ms
+        if comp.tobytes() != pt.compress_raw(data).tobytes():
+            raise AssertionError(f"encode_block_pallas_host block {i} != "
+                                 "compress_raw")
+        back, ms = _clock(torch, dev, lambda: decode_block_pallas_host(
+            comp, W, device=dev))
+        dec_ms += ms
+        table = new_hash_table()
+        both = np.concatenate([hist, data])
+        be.warm_table(table, both, W)
+        comp_h = pt.compress_raw(both, src_start=W, src_len=W,
+                                 hash_table=table)
+        back_h, ms = _clock(torch, dev, lambda: decode_block_pallas_host(
+            comp_h, W, hist, device=dev))
+        hist_ms += ms
+        exact = (back.tobytes() == data.tobytes(),
+                 back_h.tobytes() == data.tobytes())
+        if not all(exact):
+            raise AssertionError(f"decode_block_pallas_host block {i}: "
+                                 f"exact without / with history {exact}")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    want = dict.fromkeys(fns, 0)
+    want.update(greedy_encode=HELPER_BLOCKS, token_decode=2 * HELPER_BLOCKS)
+    if launches != want:
+        raise AssertionError(f"helper launches {launches}, not {want}")
+    k = HELPER_BLOCKS
+    mb = k * W / 1e3
+    print(f"phase 17: encode_block_pallas_host on {k} corpus blocks of 64 "
+          f"KB == compress_raw, {enc_ms / k:.3f} ms a call "
+          f"({mb / enc_ms:.1f} MB/s); decode_block_pallas_host round trips "
+          f"them, {dec_ms / k:.3f} ms a call ({mb / dec_ms:.1f} MB/s) "
+          f"without history, {hist_ms / k:.3f} ms ({mb / hist_ms:.1f} MB/s)"
+          f" with 64 KB of history; one launch a call {launches}, host "
+          f"clock {tag}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0x51E51A)
@@ -2341,6 +2509,7 @@ def main() -> int:
     cli_launches = _phase14(torch, pt, dev, corpus, tag)
     multihost_launches = _phase15(torch, pt, dev, corpus, tag)
     _phase16(torch, pt, dev, corpus, tag)
+    helper_launches = _phase17(torch, pt, dev, corpus, tag)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "divortio_lz4_tpu"))
@@ -2395,7 +2564,8 @@ def main() -> int:
                                 "sharded": sharded_launches.get(k["name"],
                                                                 0),
                                 "cli": cli_launches[k["name"]],
-                                "multihost": multihost_launches[k["name"]]})
+                                "multihost": multihost_launches[k["name"]],
+                                "helpers": helper_launches[k["name"]]})
         if k["launches"] < 1 or k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: launches {k['launches']}, "
                                  f"max_abs_err {k['max_abs_err']}")

@@ -161,3 +161,5 @@ __all__ = [
     "LZ4Worker", "parallel", "xxhash32", "XXHash32", "ensure_buffer",
     "available_backends", "get_backend", "NATIVE_AVAILABLE",
 ]
+
+__version__ = "0.1.0"

@@ -7,8 +7,12 @@ A port of ``divortio_lz4_tpu/__main__.py`` with its flags and its output
 files. ``-`` is stdin/stdout. Without ``--device`` a file is piped through
 the port's ``CompressStream`` / ``DecompressStream`` at their default
 ``backend="device"`` (bursts of full blocks on the card, the rest on the
-host block codec), whose frames are JAX's host-stream frames byte for
-byte; ``--device`` runs the one-shot device codec (``compress_frame`` /
+host block codec). Its frames are JAX's ``CompressStream(...,
+backend="device")`` frames fed the same 4 MiB chunks. Where no burst runs
+(blocks over 64 KB, or ``-D``) those are JAX CLI's host-stream bytes; at
+blocks of up to 64 KB without ``-D`` the bursts' chain encoder writes
+other valid bytes than JAX's CLI, and each CLI decodes the other's files.
+``--device`` runs the one-shot device codec (``compress_frame`` /
 ``decompress_frame``) with ``--engine``.
 
 One flag of its own: ``--torch-device`` (default "cuda"), the torch device

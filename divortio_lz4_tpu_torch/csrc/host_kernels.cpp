@@ -8,6 +8,7 @@
 //   lz4t_parse_records2      (:896)  wire-direct record parse
 //   lz4t_chain_serialize16   (:1218) greedy select + serialize over a u16
 //   lz4t_chain_serialize16m  (:1225) chain, plain and with splice meta
+//   lz4t_chain_serialize     (:1025) the same over a packed i32 chain
 //   lz4t_warm_table          (:119)  dictionary warm-up of the hash table
 //   lz4t_compress_frame_body (:260)  the host frame encoder's block loop,
 //                                    over compress_block_core (:136)
@@ -551,6 +552,73 @@ int64_t lz4t_chain_serialize16m(const uint8_t* work, int64_t hist_len,
                                 int64_t src_len, const uint16_t* dist16,
                                 uint8_t* out, int64_t* meta) {
   return chain_ser16_core(work, hist_len, src_len, dist16, out, meta);
+}
+
+// The packed form: chain[a] = (m << 16) | dist gives, for every payload
+// position a, the first matchable position m >= a (0xFFFF = none) and its
+// match distance (ops/hybrid_encode build_chains). The walk jumps anchor
+// -> chain[anchor] -> anchor + exact extension, with no verify (the
+// packed chains are exact-word). Returns bytes written.
+int64_t lz4t_chain_serialize(const uint8_t* work, int64_t hist_len,
+                             int64_t src_len, const int32_t* chain,
+                             uint8_t* out) {
+  const int64_t mf_limit = src_len - MF_LIMIT;
+  const int64_t match_limit = src_len - LAST_LITERALS;
+  const uint8_t* pay = work + hist_len;
+  int64_t o = 0, d = 0;
+  if (src_len > 0 && mf_limit > 0) {
+    uint32_t e = (uint32_t)chain[0];
+    int64_t m = (e >> 16) & 0xFFFF, dist = e & 0xFFFF;
+    while (m < mf_limit) {
+      int64_t len = MIN_MATCH;
+      const uint8_t* a = pay + m;
+      const uint8_t* b = a - dist;
+      const int64_t lim = match_limit - m;
+      while (len + 8 <= lim) {
+        uint64_t x, y;
+        std::memcpy(&x, a + len, 8);
+        std::memcpy(&y, b + len, 8);
+        if (x != y) {
+          len += __builtin_ctzll(x ^ y) >> 3;
+          goto emit;
+        }
+        len += 8;
+      }
+      while (len < lim && a[len] == b[len]) len++;
+    emit:;
+      int64_t lit = m - o;
+      int64_t mcode = len - MIN_MATCH;
+      out[d++] = (uint8_t)((lit < 15 ? lit : 15) << 4
+                           | (mcode < 15 ? mcode : 15));
+      if (lit >= 15) {
+        int64_t rem = lit - 15;
+        while (rem >= 255) { out[d++] = 255; rem -= 255; }
+        out[d++] = (uint8_t)rem;
+      }
+      std::memcpy(out + d, pay + o, (size_t)lit);
+      d += lit;
+      out[d++] = (uint8_t)(dist & 0xFF);
+      out[d++] = (uint8_t)(dist >> 8);
+      if (mcode >= 15) {
+        int64_t rem = mcode - 15;
+        while (rem >= 255) { out[d++] = 255; rem -= 255; }
+        out[d++] = (uint8_t)rem;
+      }
+      o = m + len;
+      e = (uint32_t)chain[o];  // o <= match_limit < src_len
+      m = (e >> 16) & 0xFFFF;
+      dist = e & 0xFFFF;
+    }
+  }
+  int64_t lit = src_len - o;
+  out[d++] = (uint8_t)((lit < 15 ? lit : 15) << 4);
+  if (lit >= 15) {
+    int64_t rem = lit - 15;
+    while (rem >= 255) { out[d++] = 255; rem -= 255; }
+    out[d++] = (uint8_t)rem;
+  }
+  std::memcpy(out + d, pay + o, (size_t)lit);
+  return d + lit;
 }
 
 // ---------------------------------------------------------------------------

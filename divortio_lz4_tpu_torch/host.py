@@ -3,7 +3,8 @@
 The wrappers and the error table are copies of
 ``divortio_lz4_tpu/native/__init__.py`` (``xxhash32_native``,
 ``scan_pieces_native``, ``parse_records_native``, ``parse_records2_native``,
-``chain_serialize16_native``, ``chain_serialize16_meta_native``,
+``chain_serialize_native``, ``chain_serialize16_native``,
+``chain_serialize16_meta_native``,
 ``warm_table_native``, ``compress_frame_body_native``,
 ``decompress_frame_body_native``, ``xxh32_round4_native``,
 ``compress_block_native``, ``decompress_block_native``), with JAX's
@@ -46,6 +47,8 @@ def _lib() -> ctypes.CDLL:
     lib.lz4t_parse_records2.restype = i64
     lib.lz4t_parse_records2.argtypes = [p, i64, i64, p, i64, i64,
                                         ctypes.POINTER(i64)]
+    lib.lz4t_chain_serialize.restype = i64
+    lib.lz4t_chain_serialize.argtypes = [p, i64, i64, p, p]
     lib.lz4t_chain_serialize16.restype = i64
     lib.lz4t_chain_serialize16.argtypes = [p, i64, i64, p, p]
     lib.lz4t_chain_serialize16m.restype = i64
@@ -155,18 +158,30 @@ def parse_records2_native(src: np.ndarray, out_cap: int, dict_len: int = 0):
     return recs[:rc], int(out_len.value)
 
 
-def _check_serialize(work, hist_len, src_len, dist16, out):
+def _check_serialize(work, hist_len, src_len, chain, out,
+                     dtype=np.uint16):
     if work.dtype != np.uint8 or not work.flags.c_contiguous:
         raise ValueError("work must be a contiguous uint8 array")
-    if dist16.dtype != np.uint16 or not dist16.flags.c_contiguous:
-        raise ValueError("dist16 must be a contiguous uint16 array")
+    if chain.dtype != dtype or not chain.flags.c_contiguous:
+        raise ValueError(f"the chain must be a contiguous "
+                         f"{np.dtype(dtype).name} array")
     if out.dtype != np.uint8 or not out.flags.c_contiguous:
         raise ValueError("out must be a contiguous uint8 array")
-    if len(work) < hist_len + src_len + 8 or len(dist16) < src_len:
+    if len(work) < hist_len + src_len + 8 or len(chain) < src_len:
         raise ValueError("work needs 8 readable bytes past hist_len + "
-                         "src_len, and dist16 src_len entries")
+                         "src_len, and the chain src_len entries")
     if len(out) < src_len + src_len // 255 + 16:
         raise ValueError("out is smaller than block_bound(src_len)")
+
+
+def chain_serialize_native(work: np.ndarray, hist_len: int, src_len: int,
+                           chain: np.ndarray, out: np.ndarray) -> int:
+    """Greedy select + exact extension + serialize over a packed i32
+    chain, ``(next matchable position << 16) | its distance`` per payload
+    position (see lz4t_chain_serialize). Returns bytes written."""
+    _check_serialize(work, hist_len, src_len, chain, out, np.int32)
+    return int(_lib().lz4t_chain_serialize(
+        _ptr(work), hist_len, src_len, _ptr(chain), _ptr(out)))
 
 
 def chain_serialize16_native(work: np.ndarray, hist_len: int, src_len: int,

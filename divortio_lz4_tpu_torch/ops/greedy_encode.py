@@ -11,6 +11,8 @@ PyTorch, which the CPU tests use and ``chip_smoke.py`` holds the kernel
 against. ``encode_blocks_pallas_batched_plain`` renders the kernel's own
 algorithm (one probe a step while the scan hits, 32 probes a warp step
 after a miss, with their hash conflicts) in PyTorch for the tests.
+``encode_block_pallas_host`` is the JAX module's one-block numpy entry
+point over the same wrapper.
 
 Contract (both versions): ``work`` u8[nb, B] holds one block per row (its
 first ``lens[b]`` bytes); the result is ``(out u8[nb, out_width(B)],
@@ -25,9 +27,11 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .._build import load_library
+from .._device import resolve_device
 from ..constants import (HASH_MASK, HASH_MULTIPLIER, HASH_SHIFT,
                          LAST_LITERALS, MF_LIMIT, MIN_MATCH, SKIP_TRIGGER,
                          WINDOW_SIZE, block_bound)
@@ -102,6 +106,25 @@ def encode_blocks_pallas(work: torch.Tensor, lens: torch.Tensor,
 
 encode_blocks_pallas.launches = 0
 encode_blocks_pallas.last_stats = None
+
+
+def encode_block_pallas_host(data, block_size=None, *,
+                             device="cuda") -> np.ndarray:
+    """numpy bytes in, one LZ4 block out, through encode_blocks_pallas on
+    *device* (``pallas_encode.py:352``): one row of B bytes, B =
+    *block_size* or len(data) rounded up to 1 KB (at least 1 KB). On
+    "cuda" it launches the kernel once; an empty block encodes to
+    nothing."""
+    dev = resolve_device(device)
+    data = np.asarray(data, np.uint8)
+    n = len(data)
+    B = -(-max(n, 1024) // 1024) * 1024 if block_size is None else block_size
+    work = np.zeros((1, B), np.uint8)
+    work[0, :n] = data
+    out, out_len = encode_blocks_pallas(
+        torch.from_numpy(work).to(dev),
+        torch.tensor([n], dtype=torch.int64, device=dev), B)
+    return out[0, : int(out_len[0])].cpu().numpy()
 
 
 def _scan_inputs(work: torch.Tensor):

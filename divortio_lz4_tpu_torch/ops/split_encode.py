@@ -1,14 +1,18 @@
 """Chain-direct encode: device candidate chains + host select/serialize.
 
 Port of ``divortio_lz4_tpu/ops/split_encode.py`` (``encode_blocks_chain``,
-the u16 branch of ``chain_select_serialize``,
-``chain_select_serialize_meta`` and ``encode_block_split_host``). The
-device builds one u16 match distance per payload position
+``chain_select_serialize``, ``chain_select_serialize_meta`` and
+``encode_block_split_host``; ``hybrid_max_bs`` is re-exported as there).
+The device builds one u16 match distance per payload position
 (``build_dist_chains``); the port's host library
 (``csrc/host_kernels.cpp``, a copy of the JAX package's native functions)
 greedy-selects, extends and serializes each block from its chain. The
-native serializer is required: unlike the JAX module there is no
-pure-Python fallback.
+packed i32 chain of ``build_chains`` (``next_pos << 16 | dist``) takes its
+own serializer, as in JAX: cast to u16 it would keep only the distances,
+and the u16 walk would then try every position before the next match
+with that match's distance, which can find a different parse. The native
+serializer is required: unlike the JAX module there is no pure-Python
+fallback.
 """
 
 from __future__ import annotations
@@ -18,8 +22,12 @@ import torch
 
 from .._device import resolve_device
 from ..constants import block_bound
-from ..host import chain_serialize16_meta_native, chain_serialize16_native
-from .hybrid_encode import CHAIN_CHUNK_ROWS, build_dist_chains
+from ..host import (chain_serialize16_meta_native, chain_serialize16_native,
+                    chain_serialize_native)
+from .hybrid_encode import CHAIN_CHUNK_ROWS, build_dist_chains, hybrid_max_bs
+
+__all__ = ["encode_blocks_chain", "chain_select_serialize",
+           "encode_block_split_host", "hybrid_max_bs"]
 
 
 def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
@@ -55,14 +63,22 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
 
 def chain_select_serialize(work: np.ndarray, hist_len: int, src_len: int,
                            chain: np.ndarray) -> np.ndarray:
-    """Greedy-select/extend/serialize one block from its u16 chain.
+    """Greedy-select/extend/serialize one block from its candidate chain.
 
     *work* = [history | payload] bytes with >= 8 readable bytes after
-    hist_len + src_len. Returns the block's wire bytes."""
+    hist_len + src_len. *chain* is the u16 distance form
+    (``build_dist_chains``) or, any other dtype, the packed i32
+    ``(next_pos << 16 | dist)`` form (``build_chains``), as in JAX.
+    Returns the block's wire bytes."""
     out = np.empty(block_bound(src_len) + 16, np.uint8)
     work = np.ascontiguousarray(work, dtype=np.uint8)
-    dist16 = np.ascontiguousarray(chain, dtype=np.uint16)
-    n = chain_serialize16_native(work, hist_len, src_len, dist16, out)
+    chain = np.asarray(chain)
+    if chain.dtype == np.uint16:
+        n = chain_serialize16_native(work, hist_len, src_len,
+                                     np.ascontiguousarray(chain), out)
+    else:
+        n = chain_serialize_native(work, hist_len, src_len,
+                                   np.ascontiguousarray(chain, np.int32), out)
     return out[:n]
 
 

@@ -24,6 +24,9 @@ interpreter, ``_interpret_block`` (``:116``); so do both entry points of
   (``ops/resolve.py``; ``token_spans`` and ``decode_token_chains_resolved``
   are the plain rendition of that design).
 
+``decode_block_pallas_host`` is the JAX module's one-block numpy entry point
+over ``decode_blocks_pallas``.
+
 On a CUDA tensor each wrapper launches its kernel (built by nvcc at first
 use) or raises; on a CPU tensor it runs the plain PyTorch version, which the
 CPU tests use and ``chip_smoke.py`` holds the kernel against. The
@@ -40,9 +43,11 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .._build import load_library
+from .._device import resolve_device
 from ..constants import WINDOW_SIZE
 from .resolve import (SEGMENT, Lits, Matches, ResolveRun, resolve_segments,
                       rounds_for)
@@ -171,6 +176,32 @@ def decode_blocks_pallas(comp: torch.Tensor, lens: torch.Tensor,
 
 decode_blocks_pallas.launches = 0
 decode_blocks_pallas.last_stats = None
+
+
+def decode_block_pallas_host(comp_bytes, out_cap: int, history=None, *,
+                             device="cuda") -> np.ndarray:
+    """numpy bytes in, numpy bytes out, through decode_blocks_pallas on
+    *device* (``pallas_decode.py:551``): one row of M = len + 256 bytes
+    rounded up to 1 KB, out_cap output bytes, and the last 64 KB of
+    *history* right-aligned (none when it is None or empty). On "cuda" it
+    launches the kernel once. A malformed block gives the kernel's clamped
+    bytes, as in JAX; nothing raises."""
+    dev = resolve_device(device)
+    comp_bytes = np.asarray(comp_bytes, np.uint8)
+    m = len(comp_bytes)
+    M = -(-(m + 2 * HALF_SLACK) // 1024) * 1024
+    comp = np.zeros((1, M), np.uint8)
+    comp[0, :m] = comp_bytes
+    hist = None
+    if history is not None and len(history) > 0:
+        h = np.asarray(history, np.uint8)[-W:]
+        hist = np.zeros(W, np.uint8)
+        hist[W - len(h):] = h
+        hist = torch.from_numpy(hist).to(dev)
+    out, out_len = decode_blocks_pallas(
+        torch.from_numpy(comp).to(dev),
+        torch.tensor([m], dtype=torch.int64, device=dev), out_cap, hist)
+    return out[0, : int(out_len[0])].cpu().numpy()
 
 
 def _check_chains(batch: TokenChains):

@@ -994,3 +994,57 @@ def decompress_frame(data, verify_checksum: bool = True, dictionary=None,
     """Decompress one LZ4 frame on *device* (see decompress_frames)."""
     return decompress_frames([data], verify_checksum, dictionary, engine,
                              device=device)[0]
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's names
+# ---------------------------------------------------------------------------
+
+def _no_hook(name: str, hook) -> None:
+    if hook is not None:
+        raise ValueError(f"{name}: the JAX package's callable hook has no "
+                         "port; shard a frame with parallel.ShardedCodec")
+
+
+def device_compress_frame(data, config: FrameConfig = DEFAULT_CONFIG,
+                          use_fingerprints: Optional[bool] = None,
+                          encode_batch=None, dictionary=None,
+                          engine: str = "xla", assemble: str = "host", *,
+                          device="cuda") -> np.ndarray:
+    """The JAX package's ``device_compress_frame``: its parameter order and
+    defaults (``engine="xla"``), then compress_frame on *device*.
+    *encode_batch* must be None."""
+    _no_hook("encode_batch", encode_batch)
+    return compress_frame(data, config, dictionary, engine,
+                          use_fingerprints=use_fingerprints,
+                          assemble=assemble, device=device)
+
+
+def device_decompress_frame(data, verify_checksum: bool = True,
+                            decode_batch=None, engine: str = "xla",
+                            dictionary=None, split_sharded=None, *,
+                            device="cuda") -> np.ndarray:
+    """The JAX package's ``device_decompress_frame``: its parameter order
+    and defaults (``engine="xla"``), then decompress_frame on *device*.
+    *decode_batch* and *split_sharded* must be None."""
+    _no_hook("decode_batch", decode_batch)
+    _no_hook("split_sharded", split_sharded)
+    return decompress_frame(data, verify_checksum, dictionary, engine,
+                            device=device)
+
+
+def device_compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
+                           dictionary=None, engine: str = "split", *,
+                           device="cuda") -> list:
+    """The JAX package's ``device_compress_frames`` (default
+    ``engine="split"``): compress_frames on *device*."""
+    return compress_frames(datas, config, dictionary, engine, device=device)
+
+
+def device_decompress_frames(frames, verify_checksum: bool = True,
+                             dictionary=None, engine: str = "split", *,
+                             device="cuda") -> list:
+    """The JAX package's ``device_decompress_frames`` (default
+    ``engine="split"``): decompress_frames on *device*."""
+    return decompress_frames(frames, verify_checksum, dictionary, engine,
+                             device=device)
