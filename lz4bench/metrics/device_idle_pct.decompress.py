@@ -1,0 +1,8 @@
+"""Share of the traced decompress calls' wall time in which no kernel, memcpy
+or memset ran on the device (percent)."""
+
+from ._trace import idle_pct
+
+
+def read(run):
+    return idle_pct(run.trace, "decompress")
