@@ -59,7 +59,7 @@
 // What bounds it on this card: the pointer-doubling rounds, each a stream
 // of the segment's codes plus a dependent read per unresolved byte. On the
 // 64 MiB default frame (2.72M records; NVIDIA H100 80GB HBM3, 700 W;
-// chip_breakdown.py): 3.65 ms, of which 10 working rounds 2.65 ms, spans
+// profiled stages): 3.65 ms, of which 10 working rounds 2.65 ms, spans
 // 0.42, gather 0.20, init 0.11, conform 0.02. On the 64 MiB corpus's 256
 // blocks of 256 KB (2.68M records; chip_decode_steps.py): 3.41-3.48 ms
 // (the serial walk per block: 8.28-8.35), of which 11 rounds 2.48,

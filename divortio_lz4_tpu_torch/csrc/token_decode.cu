@@ -105,7 +105,7 @@
 // rows in parallel: with one row per 4 MB block the parse took 104.7 ms,
 // so the host stages a scanned block as its ~64 KB pieces
 // (parallel/device.py, stage_token_chains). On the 64 MiB default frame
-// (978 rows; NVIDIA H100 80GB HBM3, 700 W; chip_breakdown.py): 7.08 ms,
+// (978 rows; NVIDIA H100 80GB HBM3, 700 W; profiled stages): 7.08 ms,
 // of which rounds 2.63, parse 2.38, spans 0.72, long spans 0.30, gather
 // 0.21, fix 0.15, init 0.11, row slots 0.004; scratch 370 MB, 98 MB of
 // it span slots. ptxas (sm_90a), no spills: token_rows_kernel 32

@@ -55,16 +55,6 @@ XLA_CHUNK_POSITIONS = 1 << 24
 # Zone packing (decode_xla.py:156-158): tag << 28 | (value + BIAS).
 BIAS = 1 << 26
 
-# None, or a callable given the name of each stage as it ends (the encode's
-# and the decode's); chip_breakdown.py times the stages with it.
-stage_hook = None
-
-
-def _stage(name: str) -> None:
-    if stage_hook is not None:
-        stage_hook(name)
-
-
 def _ceil_log2(n: int) -> int:
     return max(1, int(np.ceil(np.log2(max(n, 2)))))
 
@@ -152,12 +142,10 @@ def _decode_rows(comp: torch.Tensor, comp_len: torch.Tensor,
     nxt = torch.where(terminal, idx, mes + ext_m).clamp(0, M - 1)
     nxt = torch.where(idx >= clen, idx, nxt)
     del mes, ext_m
-    _stage("parse")
     reach0 = ((idx == 0) & (clen > 0)).to(torch.int32)
     reach, orbit_rounds = _orbit(reach0, nxt, _ceil_log2(M) + 1)
     is_seq = (reach > 0) & (idx < clen)
     del reach, nxt
-    _stage("orbit")
 
     out_adv = torch.where(
         is_seq, lit_len + torch.where(terminal, 0, match_len), 0)
@@ -188,7 +176,6 @@ def _decode_rows(comp: torch.Tensor, comp_len: torch.Tensor,
     # into the history window, right-aligned at index WINDOW_SIZE + g).
     g = torch.where(tag_f == 1, jB, jB + c_f)
     del tag_f
-    _stage("zone fill")
     chase_rounds = 0
     while chase_rounds < _ceil_log2(B) + 1:
         g2 = torch.gather(g, 1, g.clamp(0, B - 1))
@@ -198,13 +185,11 @@ def _decode_rows(comp: torch.Tensor, comp_len: torch.Tensor,
         g = g_new
         if not changed:
             break
-    _stage("chase")
 
     src_in = torch.gather(jB + c_f, 1, g.clamp(0, B - 1))
     from_hist = _take(hist, WINDOW_SIZE + g)
     out = torch.where(g >= 0, _take(comp, src_in), from_hist)
     out = torch.where(jB < out_len[:, None], out, 0).to(torch.uint8)
-    _stage("gather")
     return out, out_len, orbit_rounds, chase_rounds
 
 

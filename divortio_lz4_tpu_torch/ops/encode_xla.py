@@ -49,7 +49,7 @@ from .._device import resolve_device
 from ..constants import (LAST_LITERALS, MF_LIMIT, MIN_MATCH, WINDOW_SIZE,
                          block_bound)
 from .decode_xla import (XLA_CHUNK_POSITIONS, _ceil_log2, _orbit, _rev_cummin,
-                         _shift_up, _slot, _stage, _take)
+                         _shift_up, _slot, _take)
 from .hybrid_encode import _B1, _B1_INV, _M32, _mul32, _pows
 
 # Sort key: invalid << 55 | word << 23 | position.
@@ -102,7 +102,6 @@ def _encode_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,
     del same
     cand = torch.empty_like(cand_sorted).scatter_(1, si, cand_sorted)
     del si, cand_sorted
-    _stage("words + sort + candidates")
 
     dist = idx - cand
     has_cand = ((cand >= 0) & (dist < WINDOW_SIZE) & (idx >= hist_len)
@@ -125,7 +124,6 @@ def _encode_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,
                     (xor_w & 0xFF0000) != 0, 2, 3))))
     direct_len = first_bad_word + byte_eq          # in [4, 20]
     del xor_w, byte_eq, first_bad_word
-    _stage("16-byte direct check")
 
     lce_rounds = 0
     if use_fingerprints:
@@ -196,7 +194,6 @@ def _encode_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,
         raw_len = direct_len
         has_match = has_cand
     del c, direct_len, has_cand
-    _stage("LCE + inheritance")
 
     mlen = torch.minimum(raw_len, (match_limit - idx).clamp(min=0))
     good = has_match & (mlen >= MIN_MATCH)
@@ -220,7 +217,6 @@ def _encode_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,
     emit_match = anchor & ~terminal
     emit_tail = anchor & terminal
     del reach, anchor, terminal
-    _stage("orbit")
 
     # ---- 5. serialization ----
     lcode = torch.where(emit_match, nm_c - idx, 0)
@@ -289,7 +285,6 @@ def _encode_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,
             tag_f == 3, lit_val, torch.where(
                 tag_f == 4, off_val, torch.where(tag_f == 5, ext_val, 0)))))
     out = torch.where(jW < out_len, out, 0).to(torch.uint8)
-    _stage("serialization")
     return out, out_len[:, 0], lce_rounds, orbit_rounds, syncs
 
 

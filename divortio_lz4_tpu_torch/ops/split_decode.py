@@ -50,6 +50,7 @@ from .._build import load_library
 from .._device import resolve_device
 from ..constants import WINDOW_SIZE
 from ..host import parse_records2_native, parse_records_native
+from ..tracing import put, span
 from .compact_decode import STATS
 from .record_groups import run_groups
 
@@ -93,23 +94,24 @@ def parse_wire_raw(entries, block_size: int, window=None):
     hl = len(window) if window is not None and len(window) else 0
     max_wire = max((len(c) for c, _ in entries), default=1)
     wire_cap = _round_up(max_wire + SLACK, 1024)
-    wire = np.zeros((nb, wire_cap), np.uint8)
-    counts = np.zeros(nb, np.int32)
-    out_lens = np.zeros(nb, np.int64)
-    recs_l = []
-    for i, (c, stored) in enumerate(entries):
-        wire[i, : len(c)] = c
-        if stored:
-            r, ol = stored_wire_records(len(c)), len(c)
-        else:
-            r, ol = parse_records_wire(c, block_size, hl)
-        recs_l.append(r)
-        counts[i] = len(r)
-        out_lens[i] = ol
-    hist = None
-    if hl:
-        hist = np.zeros((nb, W), np.uint8)
-        hist[:, W - hl:] = window
+    with span("decode.parse"):
+        wire = np.zeros((nb, wire_cap), np.uint8)
+        counts = np.zeros(nb, np.int32)
+        out_lens = np.zeros(nb, np.int64)
+        recs_l = []
+        for i, (c, stored) in enumerate(entries):
+            wire[i, : len(c)] = c
+            if stored:
+                r, ol = stored_wire_records(len(c)), len(c)
+            else:
+                r, ol = parse_records_wire(c, block_size, hl)
+            recs_l.append(r)
+            counts[i] = len(r)
+            out_lens[i] = ol
+        hist = None
+        if hl:
+            hist = np.zeros((nb, W), np.uint8)
+            hist[:, W - hl:] = window
     return wire, recs_l, counts, out_lens, hist
 
 
@@ -153,14 +155,12 @@ def from_reference_records(wire, recs_l, out_lens, hist, device
     """Turn parse_wire_raw's (numpy) state into the port's tensors on
     *device*. The JAX staging and this one start from the same tuple, so
     both decoders can be fed identical parsed records."""
-    rec_words, rec_off = build_flat_records(recs_l)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return CompactBatch(put(wire), put(rec_words), put(rec_off),
-                        put(np.asarray(out_lens, np.int64)),
-                        None if hist is None else put(hist))
+    with span("decode.records"):
+        rec_words, rec_off = build_flat_records(recs_l)
+    return CompactBatch(put(wire, device), put(rec_words, device),
+                        put(rec_off, device),
+                        put(np.asarray(out_lens, np.int64), device),
+                        None if hist is None else put(hist, device))
 
 
 # ---------------------------------------------------------------------------

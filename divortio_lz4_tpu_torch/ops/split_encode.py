@@ -24,6 +24,7 @@ from .._device import resolve_device
 from ..constants import block_bound
 from ..host import (chain_serialize16_meta_native, chain_serialize16_native,
                     chain_serialize_native)
+from ..tracing import put, span
 from .hybrid_encode import CHAIN_CHUNK_ROWS, build_dist_chains, hybrid_max_bs
 
 __all__ = ["encode_blocks_chain", "chain_select_serialize",
@@ -49,15 +50,17 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
                          f"{hist_len} + block_size={block_size} "
                          "(block_size % 1024 == 0)")
     device = torch.device(device)
-    hs = np.broadcast_to(np.asarray(hist_start, np.int64), (nb,)).copy()
-    chains = torch.empty((nb, block_size), dtype=torch.uint16, device=device)
-    for i in range(0, nb, CHAIN_CHUNK_ROWS):
-        rows = slice(i, min(i + CHAIN_CHUNK_ROWS, nb))
-        w = torch.from_numpy(np.ascontiguousarray(work[rows])).to(device)
-        ln = torch.from_numpy(np.asarray(lens[rows], np.int64)).to(device)
-        h = torch.from_numpy(np.ascontiguousarray(hs[rows])).to(device)
-        chains[rows] = build_dist_chains(w, ln, hist_len, h,
-                                         hashed=not exact)
+    with span("encode.chains"):
+        hs = np.broadcast_to(np.asarray(hist_start, np.int64), (nb,)).copy()
+        chains = torch.empty((nb, block_size), dtype=torch.uint16,
+                             device=device)
+        for i in range(0, nb, CHAIN_CHUNK_ROWS):
+            rows = slice(i, min(i + CHAIN_CHUNK_ROWS, nb))
+            w = put(work[rows], device)
+            ln = put(np.asarray(lens[rows], np.int64), device)
+            h = put(hs[rows], device)
+            chains[rows] = build_dist_chains(w, ln, hist_len, h,
+                                             hashed=not exact)
     return chains
 
 

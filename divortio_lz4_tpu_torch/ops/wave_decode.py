@@ -43,6 +43,7 @@ import torch
 
 from .._build import load_library
 from ..host import scan_pieces_native
+from ..tracing import put, span
 from ..utils import host_pool
 from .resolve import (NO_PERIOD, SEGMENT, Lits, Matches, ResolveRun,
                       resolve_segments, rounds_for)
@@ -109,16 +110,17 @@ def plan_blocks(buf: np.ndarray, blocks, header, window):
     Returns (out_lens i64[nb], recs_l)."""
     bm = header["block_max"]
     pool = host_pool()
-    out_lens = np.array(list(pool.map(
-        lambda b: block_pieces(buf, *b, bm)[0], blocks)), np.int64)
-    dict_len = len(window) if window is not None else 0
-    before = np.zeros(len(blocks), np.int64)
-    if not header["independent"]:
-        before[1:] = np.cumsum(out_lens)[:-1]
-    hists = np.minimum(dict_len + before, W)
-    recs_l = list(pool.map(
-        lambda i: _block_records(buf, *blocks[i], int(out_lens[i]), bm,
-                                 int(hists[i])), range(len(blocks))))
+    with span("decode.parse"):
+        out_lens = np.array(list(pool.map(
+            lambda b: block_pieces(buf, *b, bm)[0], blocks)), np.int64)
+        dict_len = len(window) if window is not None else 0
+        before = np.zeros(len(blocks), np.int64)
+        if not header["independent"]:
+            before[1:] = np.cumsum(out_lens)[:-1]
+        hists = np.minimum(dict_len + before, W)
+        recs_l = list(pool.map(
+            lambda i: _block_records(buf, *blocks[i], int(out_lens[i]), bm,
+                                     int(hists[i])), range(len(blocks))))
     return out_lens, recs_l
 
 
@@ -180,18 +182,15 @@ def stage_chains(buf: np.ndarray, blocks, header, window,
                  device) -> ChainBatch:
     """Plan a frame's chains on the host and move them to *device*."""
     out_lens, recs_l = plan_blocks(buf, blocks, header, window)
-    arrays = build_chain_arrays(buf, blocks, header["independent"],
-                                out_lens, recs_l)
+    with span("decode.records"):
+        arrays = build_chain_arrays(buf, blocks, header["independent"],
+                                    out_lens, recs_l)
     seed = None
     if window is not None and len(window):
         seed = np.zeros(W, np.uint8)
         seed[W - len(window):] = window[-W:]
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return ChainBatch(*(put(a) for a in arrays),
-                      None if seed is None else put(seed),
+    return ChainBatch(*(put(a, device) for a in arrays),
+                      None if seed is None else put(seed, device),
                       int(arrays[4][-1]))
 
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .._build import load_library
+from ..tracing import span
 from .resolve import SEGMENT, ResolveRun, resolve_segments, rounds_for
 from .split_decode import parse_wire_raw
 from .wave_decode import W, ChainBatch, decode_records_plain, record_spans
@@ -51,10 +52,11 @@ def parse_wire_batch(entries, block_size: int, window=None):
     largest record count (at least 1)."""
     wire, recs_l, counts, out_lens, hist = parse_wire_raw(
         entries, block_size, window)
-    recs = np.zeros((len(entries), max(int(counts.max(initial=0)), 1), 2),
-                    np.uint32)
-    for i, r in enumerate(recs_l):
-        recs[i, : len(r)] = r
+    with span("decode.records"):
+        recs = np.zeros((len(entries), max(int(counts.max(initial=0)), 1),
+                         2), np.uint32)
+        for i, r in enumerate(recs_l):
+            recs[i, : len(r)] = r
     return wire, recs.view(np.int32), counts, out_lens, hist
 
 

@@ -25,6 +25,7 @@ import torch
 
 from ..constants import WINDOW_SIZE, block_bound
 from ..ops.split_encode import chain_select_serialize_meta, encode_blocks_chain
+from ..tracing import span
 from ..utils import host_pool
 
 SEG = WINDOW_SIZE            # encode segment size (the u16 chain ceiling)
@@ -87,22 +88,23 @@ def _encode_segments(work: np.ndarray, lens: np.ndarray,
     trailing literal count, last-match-sequence stream offset, last-match
     output anchor (lz4t_chain_serialize16m)."""
     nrows, rowlen = work.shape
-    # serializer reads 8-byte words past hist+src: pad rows once
-    wk = np.zeros((nrows, rowlen + 8), np.uint8)
-    wk[:, :rowlen] = work
-    OW = block_bound(SEG) + 16
-    outs = np.zeros((nrows, OW), np.uint8)
-    out_lens = np.zeros(nrows, np.int64)
-    metas = np.zeros((nrows, 4), np.int64)
+    with span("encode.serialize"):
+        # serializer reads 8-byte words past hist+src: pad rows once
+        wk = np.zeros((nrows, rowlen + 8), np.uint8)
+        wk[:, :rowlen] = work
+        OW = block_bound(SEG) + 16
+        outs = np.zeros((nrows, OW), np.uint8)
+        out_lens = np.zeros(nrows, np.int64)
+        metas = np.zeros((nrows, 4), np.int64)
 
-    def _ser_one(k):
-        s, meta = chain_select_serialize_meta(wk[k], WINDOW_SIZE,
-                                              int(lens[k]), chains[k])
-        outs[k, : len(s)] = s
-        out_lens[k] = len(s)
-        metas[k] = meta
+        def _ser_one(k):
+            s, meta = chain_select_serialize_meta(wk[k], WINDOW_SIZE,
+                                                  int(lens[k]), chains[k])
+            outs[k, : len(s)] = s
+            out_lens[k] = len(s)
+            metas[k] = meta
 
-    list(host_pool().map(_ser_one, range(nrows)))
+        list(host_pool().map(_ser_one, range(nrows)))
     return outs, out_lens, metas
 
 
@@ -376,7 +378,9 @@ def queue_frame_big(raw: np.ndarray, bs: int, window: Optional[np.ndarray],
                     linked: bool, device) -> BigEncodeState:
     """Build a frame's segment rows and queue their chains on *device*
     (the dispatch half of ``compress_frame_big``)."""
-    work, lens, hist_start, seg_rows = _segment_rows(raw, bs, window, linked)
+    with span("encode.rows"):
+        work, lens, hist_start, seg_rows = _segment_rows(raw, bs, window,
+                                                         linked)
     chains = encode_blocks_chain(work, lens, SEG, WINDOW_SIZE, hist_start,
                                  device=device)
     return BigEncodeState(raw, bs, linked, seg_rows, work, lens, chains)
@@ -390,14 +394,15 @@ def splice_blocks_big(state: BigEncodeState, chains_np: np.ndarray) -> list:
     n = len(raw)
     outs, out_lens, metas = _encode_segments(work, lens, chains_np)
     comps = []
-    for b, rlist in enumerate(seg_rows):
-        bstart = b * bs
-        bend = min(bstart + bs, n)
-        comps.append(_splice_block(
-            raw, bstart, bend,
-            [outs[r][: int(out_lens[r])] for r in rlist],
-            [metas[r] for r in rlist],
-            [lens[r] for r in rlist],
-            src_floor=0 if linked else bstart))
+    with span("encode.splice"):
+        for b, rlist in enumerate(seg_rows):
+            bstart = b * bs
+            bend = min(bstart + bs, n)
+            comps.append(_splice_block(
+                raw, bstart, bend,
+                [outs[r][: int(out_lens[r])] for r in rlist],
+                [metas[r] for r in rlist],
+                [lens[r] for r in rlist],
+                src_floor=0 if linked else bstart))
     return comps
 

@@ -107,6 +107,7 @@ from ..ops.token_decode import (TokenChains, decode_blocks_pallas,
                                 decode_token_chains)
 from ..ops.wave_decode import block_pieces, decode_chains, stage_chains
 from ..ops.wire_decode import decode_blocks_wire, parse_wire_batch
+from ..tracing import count, put, span
 from ..utils import ensure_buffer, host_pool, read_u32le, write_u32le
 from ..xxh import xxhash32
 from .bigblock import queue_frame_big, splice_blocks_big
@@ -187,37 +188,43 @@ def _assemble_frame_host(raw, comps, lens, nblocks, bs, config,
     """Host frame assembly over per-block wire streams: header, size
     words, stored fallback, optional block checksums, EndMark, content
     checksum."""
-    n = len(raw)
-    frame = np.empty(19 + n + (n // 255) + 16 * max(nblocks, 1) + 8,
-                     np.uint8)
-    header = _frame_header_bytes(config, n, dict_id)
-    frame[: len(header)] = header
-    pos = len(header)
-    for b in range(nblocks):
-        bsize = int(lens[b])
-        comp = comps[b]
-        clen = len(comp)
-        if 0 < clen < bsize:
-            write_u32le(frame, pos, clen)
-            pos += 4
-            frame[pos: pos + clen] = comp
-            pos += clen
-            data_start = pos - clen
-        else:
-            write_u32le(frame, pos, bsize | UNCOMPRESSED_FLAG)
-            pos += 4
-            frame[pos: pos + bsize] = raw[b * bs: b * bs + bsize]
-            pos += bsize
-            data_start = pos - bsize
-        if config.block_checksums:
-            write_u32le(frame, pos, xxhash32(frame[data_start:pos], 0))
-            pos += 4
-    write_u32le(frame, pos, 0)
-    pos += 4
-    if config.content_checksum:
-        write_u32le(frame, pos, xxhash32(raw, 0))
+    with span("frame.assemble"):
+        n = len(raw)
+        frame = np.empty(19 + n + (n // 255) + 16 * max(nblocks, 1) + 8,
+                         np.uint8)
+        header = _frame_header_bytes(config, n, dict_id)
+        frame[: len(header)] = header
+        pos = len(header)
+        hashed = []         # (data start, checksum position) per block
+        for b in range(nblocks):
+            bsize = int(lens[b])
+            comp = comps[b]
+            clen = len(comp)
+            if 0 < clen < bsize:
+                write_u32le(frame, pos, clen)
+                pos += 4
+                frame[pos: pos + clen] = comp
+                pos += clen
+                data_start = pos - clen
+            else:
+                write_u32le(frame, pos, bsize | UNCOMPRESSED_FLAG)
+                pos += 4
+                frame[pos: pos + bsize] = raw[b * bs: b * bs + bsize]
+                pos += bsize
+                data_start = pos - bsize
+            if config.block_checksums:
+                hashed.append((data_start, pos))
+                pos += 4
+        write_u32le(frame, pos, 0)
         pos += 4
-    return frame[:pos]
+        if hashed or config.content_checksum:
+            with span("frame.xxh32"):
+                for start, at in hashed:
+                    write_u32le(frame, at, xxhash32(frame[start:at], 0))
+                if config.content_checksum:
+                    write_u32le(frame, pos, xxhash32(raw, 0))
+                    pos += 4
+        return frame[:pos]
 
 
 def parse_block_index(buf: np.ndarray, verify_checksum: bool = True):
@@ -296,10 +303,6 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _put(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
 # ---------------------------------------------------------------------------
 # Encode
 # ---------------------------------------------------------------------------
@@ -349,8 +352,9 @@ def _history_rows(raw, bs, window, linked):
 
 def _compress_split(raw, bs, window, linked, device) -> _EncodeState:
     """Queue one frame's chain builds on *device*."""
-    work, lens, nblocks, hist_len, hist_start = _history_rows(raw, bs, window,
-                                                              linked)
+    with span("encode.rows"):
+        work, lens, nblocks, hist_len, hist_start = _history_rows(
+            raw, bs, window, linked)
     chains = encode_blocks_chain(work, lens, bs, hist_len, hist_start,
                                  device=device)
     return _EncodeState(raw, work, lens, nblocks, bs, hist_len, chains)
@@ -361,32 +365,33 @@ def _split_encode_fetch(state: _EncodeState, chains_np: np.ndarray) -> list:
     pool). Returns the blocks' streams."""
     raw, work, lens, nblocks, bs, hist_len = state[:6]
     comps = [None] * nblocks
+    with span("encode.serialize"):
+        if hist_len == 0:
+            # One padded copy of the frame: row b's work view is
+            # raw_pad[b*bs : b*bs+src_len+8]; the 8 slack bytes only need
+            # to be readable (the extension clamps at its match limit).
+            raw_pad = np.zeros(nblocks * bs + 8, np.uint8)
+            raw_pad[: len(raw)] = np.asarray(raw, np.uint8)
 
-    if hist_len == 0:
-        # One padded copy of the frame: row b's work view is
-        # raw_pad[b*bs : b*bs+src_len+8]; the 8 slack bytes only need to
-        # be readable (the extension clamps at its match limit).
-        raw_pad = np.zeros(nblocks * bs + 8, np.uint8)
-        raw_pad[: len(raw)] = np.asarray(raw, np.uint8)
+            def _serialize_one(b):
+                src_len = int(lens[b])
+                comps[b] = chain_select_serialize(
+                    raw_pad[b * bs: b * bs + src_len + 8], 0, src_len,
+                    chains_np[b])
+        else:
+            def _serialize_one(b):
+                src_len = int(lens[b])
+                wk = np.zeros(hist_len + src_len + 8, np.uint8)
+                wk[:hist_len] = work[b, :hist_len]
+                wk[hist_len: hist_len + src_len] = \
+                    raw[b * bs: b * bs + src_len]
+                comps[b] = chain_select_serialize(wk, hist_len, src_len,
+                                                  chains_np[b])
 
-        def _serialize_one(b):
-            src_len = int(lens[b])
-            comps[b] = chain_select_serialize(
-                raw_pad[b * bs: b * bs + src_len + 8], 0, src_len,
-                chains_np[b])
-    else:
-        def _serialize_one(b):
-            src_len = int(lens[b])
-            wk = np.zeros(hist_len + src_len + 8, np.uint8)
-            wk[:hist_len] = work[b, :hist_len]
-            wk[hist_len: hist_len + src_len] = raw[b * bs: b * bs + src_len]
-            comps[b] = chain_select_serialize(wk, hist_len, src_len,
-                                              chains_np[b])
-
-    # The native serializer releases the GIL: blocks run in parallel.
-    for f in [host_pool().submit(_serialize_one, b)
-              for b in range(nblocks)]:
-        f.result()
+        # The native serializer releases the GIL: blocks run in parallel.
+        for f in [host_pool().submit(_serialize_one, b)
+                  for b in range(nblocks)]:
+            f.result()
     return comps
 
 
@@ -460,8 +465,8 @@ def _encode_row_batch(encoder: str, work, lens, bs, hist_len, hist_start,
     """Queue one batch of rows on *device* through the greedy kernel, the
     hybrid walk or the XLA encoder. Returns (d_work, d_lens, out,
     out_lens), all on *device*."""
-    d_work = _put(work, device)
-    d_lens = _put(lens.astype(np.int64), device)
+    d_work = put(work, device)
+    d_lens = put(lens.astype(np.int64), device)
     if encoder == "pallas":
         out, out_lens = encode_blocks_pallas(d_work, d_lens, bs)
     elif encoder == "hybrid":
@@ -489,12 +494,13 @@ def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
     tensors, finish) as _queue_compress does."""
     bs = config.resolved_block_size
     linked = not config.block_independence
-    if encoder == "pallas":
-        work, lens, nblocks = _blocks_to_batch(raw, bs)
-        hist_len, hist_start = 0, 0
-    else:
-        work, lens, nblocks, hist_len, hist_start = _history_rows(
-            raw, bs, window, linked)
+    with span("encode.rows"):
+        if encoder == "pallas":
+            work, lens, nblocks = _blocks_to_batch(raw, bs)
+            hist_len, hist_start = 0, 0
+        else:
+            work, lens, nblocks, hist_len, hist_start = _history_rows(
+                raw, bs, window, linked)
     finish = _finish_rows(raw, lens, nblocks, bs, config, dict_id)
     if shards is not None:
         tensors = []
@@ -519,7 +525,8 @@ def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
         parts = [header, fetched[0]]
         if config.content_checksum:
             ck = np.empty(4, np.uint8)
-            write_u32le(ck, 0, xxhash32(raw, 0))
+            with span("frame.xxh32"):
+                write_u32le(ck, 0, xxhash32(raw, 0))
             parts.append(ck)
         return np.concatenate(parts)
     return [body[: int(total)]], finish_device
@@ -548,28 +555,32 @@ def _fetch_all(tensors: list) -> list:
     """Copy device tensors of any dtypes and shapes to the host with ONE
     device-to-host transfer per device (each viewed as bytes, padded to
     8-byte alignment and joined, then cut and viewed back); returns numpy
-    arrays in input order."""
+    arrays in input order. The span ``frame.fetch`` holds the copies and
+    the wait for the work queued before them; ``d2h_bytes`` counts the
+    joined bytes, padding included."""
     by_dev = {}
     for i, x in enumerate(tensors):
         by_dev.setdefault(x.device, []).append(i)
     got = [None] * len(tensors)
-    for idx in by_dev.values():
-        parts, spans = [], []
-        pos = 0
-        for i in idx:
-            b = tensors[i].contiguous().reshape(-1).view(torch.uint8)
-            pad = -b.numel() % 8
-            parts.append(b)
-            if pad:
-                parts.append(torch.zeros(pad, dtype=torch.uint8,
-                                         device=b.device))
-            spans.append(pos)
-            pos += b.numel() + pad
-        flat = torch.cat(parts).cpu().numpy()
-        for i, at in zip(idx, spans):
-            x = tensors[i]
-            got[i] = flat[at: at + x.numel() * x.element_size()] \
-                .view(_NP_DTYPES[x.dtype]).reshape(tuple(x.shape))
+    with span("frame.fetch"):
+        for idx in by_dev.values():
+            parts, spans = [], []
+            pos = 0
+            for i in idx:
+                b = tensors[i].contiguous().reshape(-1).view(torch.uint8)
+                pad = -b.numel() % 8
+                parts.append(b)
+                if pad:
+                    parts.append(torch.zeros(pad, dtype=torch.uint8,
+                                             device=b.device))
+                spans.append(pos)
+                pos += b.numel() + pad
+            count("d2h_bytes", pos)
+            flat = torch.cat(parts).cpu().numpy()
+            for i, at in zip(idx, spans):
+                x = tensors[i]
+                got[i] = flat[at: at + x.numel() * x.element_size()] \
+                    .view(_NP_DTYPES[x.dtype]).reshape(tuple(x.shape))
     return got
 
 
@@ -600,30 +611,32 @@ def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
     device (``ops/assemble_xla``) on the row encoders, and sends
     "split"/"hybrid" frames of bigger blocks to the XLA encoder, as JAX
     does. *device* is "cuda" unless the caller asks for the CPU."""
-    dev = resolve_device(device)
-    _require_engine(engine, ENCODE_ENGINES, "encode")
-    if assemble not in ("host", "device"):
-        raise ValueError(f"assemble={assemble!r}: 'host' or 'device'")
-    if use_fingerprints is None:
-        use_fingerprints = config.favor_ratio
-    route = _encode_route(engine, config, dictionary, assemble)
-    window, dict_id = _dict_window(dictionary)
-    queued = []
-    for d in datas:
-        raw = ensure_buffer(d)
-        if route == "split":
-            queued.append(_queue_compress(raw, config, window, dict_id, dev))
-        elif route == "host":
-            queued.append(([], lambda f, raw=raw: compress_frame_host(
-                raw, dictionary, config)))
-        else:
-            queued.append(_queue_compress_rows(raw, config, window, dict_id,
-                                               dev, route, use_fingerprints,
-                                               assemble))
-    fetched = iter(_fetch_all([t for tensors, _ in queued
-                               for t in tensors]))
-    return [finish([next(fetched) for _ in tensors])
-            for tensors, finish in queued]
+    with span("compress_frames"):
+        dev = resolve_device(device)
+        _require_engine(engine, ENCODE_ENGINES, "encode")
+        if assemble not in ("host", "device"):
+            raise ValueError(f"assemble={assemble!r}: 'host' or 'device'")
+        if use_fingerprints is None:
+            use_fingerprints = config.favor_ratio
+        route = _encode_route(engine, config, dictionary, assemble)
+        window, dict_id = _dict_window(dictionary)
+        queued = []
+        for d in datas:
+            raw = ensure_buffer(d)
+            if route == "split":
+                queued.append(_queue_compress(raw, config, window, dict_id,
+                                              dev))
+            elif route == "host":
+                queued.append(([], lambda f, raw=raw: compress_frame_host(
+                    raw, dictionary, config)))
+            else:
+                queued.append(_queue_compress_rows(
+                    raw, config, window, dict_id, dev, route,
+                    use_fingerprints, assemble))
+        fetched = iter(_fetch_all([t for tensors, _ in queued
+                                   for t in tensors]))
+        return [finish([next(fetched) for _ in tensors])
+                for tensors, finish in queued]
 
 
 def compress_frame(data, config: FrameConfig = DEFAULT_CONFIG,
@@ -655,8 +668,10 @@ def _decode_independent_split(buf, blocks, bs, window, device):
     entries = [(buf[off: off + size], stored) for off, size, stored in blocks]
     wire, recs_l, _, out_lens, hist = parse_wire_raw(entries, bs, window)
     batch = from_reference_records(wire, recs_l, out_lens, hist, device)
-    out = decode_blocks_compact(batch.wire, batch.rec_words, batch.rec_off,
-                                batch.out_lens, bs, batch.hist)
+    with span("decode.kernel"):
+        out = decode_blocks_compact(batch.wire, batch.rec_words,
+                                    batch.rec_off, batch.out_lens, bs,
+                                    batch.hist)
     return [out], lambda f: _split_decode_fetch(f[0], out_lens)
 
 
@@ -665,9 +680,10 @@ def _decode_wide_split(buf, blocks, bs, window, device):
     the wire decode kernel. Returns (device tensors, join)."""
     entries = [(buf[off: off + size], stored) for off, size, stored in blocks]
     wire, recs, counts, out_lens, hist = parse_wire_batch(entries, bs, window)
-    out = decode_blocks_wire(_put(wire, device), _put(recs, device),
-                             _put(counts, device), bs,
-                             None if hist is None else _put(hist, device))
+    args = (put(wire, device), put(recs, device), put(counts, device), bs,
+            None if hist is None else put(hist, device))
+    with span("decode.kernel"):
+        out = decode_blocks_wire(*args)
     return [out], lambda f: _split_decode_fetch(f[0], out_lens)
 
 
@@ -705,7 +721,7 @@ def _seed_window(window, device) -> Optional[torch.Tensor]:
         return None
     seed = np.zeros(WINDOW_SIZE, np.uint8)
     seed[WINDOW_SIZE - len(window):] = window
-    return _put(seed, device)
+    return put(seed, device)
 
 
 def stage_token_blocks(buf, blocks, window, device):
@@ -723,7 +739,7 @@ def stage_token_blocks(buf, blocks, window, device):
         if not stored:
             comp[i, :size] = buf[off: off + size]
             lens[i] = size
-    return _put(comp, device), _put(lens, device), \
+    return put(comp, device), put(lens, device), \
         _seed_window(window, device)
 
 
@@ -781,10 +797,10 @@ def stage_token_chains(buf, blocks, header, window, device, scan: bool):
     starts = np.concatenate([[0], np.cumsum(per_block)])[chain_blocks]
     out_off = np.concatenate([[0], np.cumsum(caps)])[chain_blocks] \
         .astype(np.int64)
-    batch = TokenChains(_put(comp, device), _put(comp_off, device),
-                        _put(stored, device),
-                        _put(starts.astype(np.int64), device),
-                        _put(out_off, device), _seed_window(window, device),
+    batch = TokenChains(put(comp, device), put(comp_off, device),
+                        put(stored, device),
+                        put(starts.astype(np.int64), device),
+                        put(out_off, device), _seed_window(window, device),
                         bs, int(out_off[-1]))
     return batch, starts, out_off
 
@@ -820,7 +836,7 @@ def stage_xla_blocks(buf, blocks, bs, device):
         if not stored:
             comp[i, :size] = buf[off: off + size]
             lens[i] = size
-    return _put(comp, device), _put(lens, device)
+    return put(comp, device), put(lens, device)
 
 
 def _decode_independent_xla(buf, blocks, bs, window, device):
@@ -861,7 +877,7 @@ def stage_xla_chain(buf, blocks, bs, device):
         comp[i, :size] = buf[off: off + size]
         lens[i] = size
         stored[i] = st
-    return _put(comp, device), _put(lens, device), torch.from_numpy(stored)
+    return put(comp, device), put(lens, device), torch.from_numpy(stored)
 
 
 def _decode_linked_xla(buf, blocks, bs, window, device):
@@ -906,18 +922,20 @@ def _stage_frame(buf, verify_checksum, window, dict_id, device,
     ``ShardedCodec``), an independent frame on the xla engine, or on the
     split engine with blocks up to 256 KB, decodes each shard of its
     blocks on its own device; every other frame decodes on *device*."""
-    header, blocks, tail = parse_block_index(buf, verify_checksum)
-    bs = header["block_max"]
-    if header["dict_id"] is not None:
-        if window is None:
-            raise ValueError("LZ4: Frame requires a Dictionary")
-        if dict_id != header["dict_id"]:
-            raise ValueError("LZ4: Dictionary ID Mismatch")
-    if verify_checksum and header["block_checksums"]:
-        for off, size, _ in blocks:
-            stored = read_u32le(buf, off + size)
-            if stored != xxhash32(buf[off: off + size], 0):
-                raise ValueError("LZ4: Block Checksum Error")
+    with span("frame.index"):
+        header, blocks, tail = parse_block_index(buf, verify_checksum)
+        bs = header["block_max"]
+        if header["dict_id"] is not None:
+            if window is None:
+                raise ValueError("LZ4: Frame requires a Dictionary")
+            if dict_id != header["dict_id"]:
+                raise ValueError("LZ4: Dictionary ID Mismatch")
+        if verify_checksum and header["block_checksums"]:
+            with span("frame.xxh32"):
+                for off, size, _ in blocks:
+                    stored = read_u32le(buf, off + size)
+                    if stored != xxhash32(buf[off: off + size], 0):
+                        raise ValueError("LZ4: Block Checksum Error")
     # Independent-frame routes: each decodes a shard of blocks as it
     # decodes a whole frame.
     route = None
@@ -948,19 +966,23 @@ def _stage_frame(buf, verify_checksum, window, dict_id, device,
             buf, blocks, header, window, device,
             scan=bs > PALLAS_LINKED_MAX_BS)
     else:
-        tensors = [decode_chains(stage_chains(buf, blocks, header, window,
-                                              device))]
+        batch = stage_chains(buf, blocks, header, window, device)
+        with span("decode.kernel"):
+            tensors = [decode_chains(batch)]
         join = lambda f: f[0]   # noqa: E731  (the chains tile the frame)
     return _DecodeState(header, buf, tail, tensors, join)
 
 
 def _finish_frame(state: _DecodeState, fetched, verify_checksum
                   ) -> np.ndarray:
-    result = state.join(fetched)
+    with span("frame.join"):
+        result = state.join(fetched)
     if state.header["content_checksum"] and verify_checksum:
         if state.tail + 4 > len(state.buf):
             raise ValueError("LZ4: Malformed Input")
-        if read_u32le(state.buf, state.tail) != xxhash32(result, 0):
+        with span("frame.xxh32"):
+            ok = read_u32le(state.buf, state.tail) == xxhash32(result, 0)
+        if not ok:
             raise ValueError("LZ4: Content Checksum Error")
     return result
 
@@ -978,14 +1000,15 @@ def decompress_frames(frames, verify_checksum: bool = True,
     clipped bytes, and only a checksum catches them. A frame with a dictID
     requires *dictionary* and verifies its id. *device* is "cuda" unless
     the caller asks for the CPU."""
-    dev = resolve_device(device)
-    _require_engine(engine, DECODE_ENGINES, "decode")
-    window, dict_id = _dict_window(dictionary)
-    states = [_stage_frame(ensure_buffer(f), verify_checksum, window,
-                           dict_id, dev, engine) for f in frames]
-    fetched = iter(_fetch_all([t for s in states for t in s.tensors]))
-    return [_finish_frame(s, [next(fetched) for _ in s.tensors],
-                          verify_checksum) for s in states]
+    with span("decompress_frames"):
+        dev = resolve_device(device)
+        _require_engine(engine, DECODE_ENGINES, "decode")
+        window, dict_id = _dict_window(dictionary)
+        states = [_stage_frame(ensure_buffer(f), verify_checksum, window,
+                               dict_id, dev, engine) for f in frames]
+        fetched = iter(_fetch_all([t for s in states for t in s.tensors]))
+        return [_finish_frame(s, [next(fetched) for _ in s.tensors],
+                              verify_checksum) for s in states]
 
 
 def decompress_frame(data, verify_checksum: bool = True, dictionary=None,

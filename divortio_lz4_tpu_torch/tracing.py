@@ -1,0 +1,104 @@
+"""Spans and copy counters of the port's host steps.
+
+A span is a ``torch.profiler.record_function`` range named ``"lz4t." +
+name``. It is opened only while a profiler is recording; otherwise
+``span`` hands back one shared null context, so an untraced call pays one
+check a span. The profiler stamps the ranges on the clock of the device
+trace (kernels, memcpys), so every stretch in which the device waits
+falls under the innermost range that covers it.
+
+Spans nest: the root of each call is ``lz4t.compress_frames`` or
+``lz4t.decompress_frames`` (``parallel/device.py``), and every step of the
+call is a range inside it. Spans open only on the thread that called the
+entry point: a fan-out to the host pool is one span around its submit and
+join, since ranges opened on pool threads are not recorded.
+
+Counters (``count``) add bytes while a profiler is recording, under the
+root that is open on the calling thread: ``h2d_bytes`` (every upload of
+``put``) and ``d2h_bytes`` (every fetch of ``_fetch_all``). To trace the
+port, run its calls under ``torch.profiler.profile``, then read the
+ranges from the profile and the totals from ``counters()``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import numpy as np
+import torch
+
+PREFIX = "lz4t."
+ROOTS = ("compress_frames", "decompress_frames")
+
+_profiling = torch.autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+_local = threading.local()      # .root: the root open on this thread
+_lock = threading.Lock()
+_totals: dict = {}              # {root: {counter: total}}
+
+
+class _Range:
+    """A recorded range; a root also marks its thread's counters."""
+
+    __slots__ = ("_range", "_root", "_outer")
+
+    def __init__(self, name: str):
+        self._range = torch.profiler.record_function(PREFIX + name)
+        self._root = name if name in ROOTS else None
+
+    def __enter__(self):
+        if self._root is not None:
+            self._outer = getattr(_local, "root", None)
+            _local.root = self._root
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        if self._root is not None:
+            _local.root = self._outer
+        return False
+
+
+def span(name: str):
+    """The range ``lz4t.<name>`` while a profiler records, else a shared
+    null context."""
+    if not _profiling():
+        return _NULL
+    return _Range(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add *n* to counter *name* of the root open on this thread, while a
+    profiler records."""
+    if not _profiling():
+        return
+    root = getattr(_local, "root", None)
+    if root is None:
+        return
+    with _lock:
+        per = _totals.setdefault(root, {})
+        per[name] = per.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """A copy of the totals: {root: {counter: total}}."""
+    with _lock:
+        return {k: dict(v) for k, v in _totals.items()}
+
+
+def reset() -> None:
+    """Clear every total."""
+    with _lock:
+        _totals.clear()
+
+
+def put(a: np.ndarray, device) -> torch.Tensor:
+    """Copy a host array to *device*: the span ``frame.put`` and the
+    counter ``h2d_bytes``. A pageable copy waits for the work already
+    queued on the stream, so the span holds that wait."""
+    host = torch.from_numpy(np.ascontiguousarray(a))
+    with span("frame.put"):
+        count("h2d_bytes", host.numel() * host.element_size())
+        return host.to(device)

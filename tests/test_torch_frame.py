@@ -312,8 +312,7 @@ def _port_sources():
     files = sorted(glob.glob(os.path.join(REPO, "divortio_lz4_tpu_torch",
                                           "**", "*.py"), recursive=True))
     return files + [os.path.join(REPO, name) for name in
-                    ("chip_smoke.py", "chip_breakdown.py",
-                     "chip_decode_steps.py",
+                    ("chip_smoke.py", "chip_decode_steps.py",
                      os.path.join("examples", "12_torch_device.py"))]
 
 
