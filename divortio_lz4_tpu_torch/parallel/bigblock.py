@@ -13,7 +13,10 @@ byte-identical to the JAX ``compress_frame_big``.
 
 The host helpers from ``_segment_rows`` to ``_splice_block`` are verbatim
 copies of the JAX module's (it cannot be imported: its package imports
-jax). The decode half lives in ``ops/wave_decode.py``.
+jax), all but ``_ext_len``: the JAX one compares the whole rest of the
+block at every segment boundary, the port's compares in growing windows
+and stops at the first mismatch, with the same result for every input.
+The decode half lives in ``ops/wave_decode.py``.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ import torch
 
 from ..constants import WINDOW_SIZE, block_bound
 from ..ops.split_encode import chain_select_serialize_meta, encode_blocks_chain
-from ..tracing import span
+from ..tracing import count, span
 from ..utils import host_pool
 
 SEG = WINDOW_SIZE            # encode segment size (the u16 chain ceiling)
+_EXT_FIRST = 64              # _ext_len's first compare window, bytes
+_EXT_GROW = 4                # and the factor of each next window
 
 
 # --------------------------------------------------------------------------
@@ -169,13 +174,27 @@ def _emit_seq(lit_bytes: np.ndarray, off: int, mlen: int) -> np.ndarray:
 
 
 def _ext_len(raw: np.ndarray, start: int, dist: int, limit: int) -> int:
-    """How far plaintext continues to match itself at -dist from *start*."""
+    """How far plaintext continues to match itself at -dist from *start*.
+
+    Compares in windows of ``_EXT_FIRST`` bytes, each next one
+    ``_EXT_GROW`` times the last, and stops at the first window that holds
+    a mismatch: the work follows the extension found, not *limit*. Adds
+    the bytes compared to the counter ``splice_cmp_bytes``."""
     if limit <= 0:
         return 0
     a = raw[start: start + limit]
     b = raw[start - dist: start - dist + len(a)]
-    neq = np.nonzero(a != b)[0]
-    return int(neq[0]) if len(neq) else len(a)
+    n = len(a)
+    i, w = 0, _EXT_FIRST
+    while i < n:
+        j = min(i + w, n)
+        neq = np.flatnonzero(a[i:j] != b[i:j])
+        if len(neq):
+            count("splice_cmp_bytes", j)
+            return i + int(neq[0])
+        i, w = j, w * _EXT_GROW
+    count("splice_cmp_bytes", n)
+    return n
 
 
 def _absorb_prefix(stream, take_total: int, seg_g: int, raw: np.ndarray):

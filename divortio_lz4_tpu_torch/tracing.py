@@ -15,9 +15,11 @@ join, since ranges opened on pool threads are not recorded.
 
 Counters (``count``) add bytes while a profiler is recording, under the
 root that is open on the calling thread: ``h2d_bytes`` (every upload of
-``put``) and ``d2h_bytes`` (every fetch of ``_fetch_all``). To trace the
-port, run its calls under ``torch.profiler.profile``, then read the
-ranges from the profile and the totals from ``counters()``.
+``put``), ``d2h_bytes`` (every fetch of ``_fetch_all``) and
+``splice_cmp_bytes`` (the plaintext that the big-block splice compared to
+extend matches over segment boundaries, ``parallel/bigblock._ext_len``).
+To trace the port, run its calls under ``torch.profiler.profile``, then
+read the ranges from the profile and the totals from ``counters()``.
 """
 
 from __future__ import annotations

@@ -12,16 +12,18 @@ including the splicer's end-of-segment rules. Tolerance: exact everywhere.
 
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile
 
 import divortio_lz4_tpu as lz4
 import divortio_lz4_tpu_torch as pt
-from _torch_port import cuda, mixed_payload  # noqa: F401  (cuda: fixture)
+from _torch_port import cuda, mixed_payload, one_torch_thread  # noqa: F401
 from divortio_lz4_tpu.config import FrameConfig
 from divortio_lz4_tpu.ops import hybrid_encode as jax_hybrid
 from divortio_lz4_tpu.ops import split_encode as jax_split
 from divortio_lz4_tpu.parallel import bigblock as jax_bb
 from divortio_lz4_tpu.parallel.device import (device_compress_frame,
                                               device_decompress_frame)
+from divortio_lz4_tpu_torch import tracing
 from divortio_lz4_tpu_torch.ops import split_encode as pt_split
 from divortio_lz4_tpu_torch.parallel import bigblock as pt_bb
 
@@ -127,6 +129,97 @@ def test_splice_edge_cases_match_jax(kind):
     for linked in (False, True):
         _check_frame(data, FrameConfig(block_size=262144,
                                        block_independence=not linked))
+
+
+def _planted(seed, start, dist, length, n=40_000):
+    """Random bytes in which plaintext at *start* repeats itself at -dist
+    for exactly *length* bytes (byte by byte, so dist < length overlaps),
+    then differs."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, n, np.uint8)
+    for i in range(length):
+        raw[start + i] = raw[start - dist + i]
+    if start + length < n:
+        raw[start + length] = raw[start - dist + length] ^ 0x5A
+    return raw
+
+
+def _ext_case(case):
+    """(raw, start, dist, limit) of one _ext_len case."""
+    kind, _, arg = case.partition(":")
+    if kind == "limit":                      # 0 and negative limits
+        return _planted(30, 1000, 100, 500), 1000, 100, int(arg)
+    if kind == "mismatch":                   # first mismatch at offset arg
+        return _planted(31, 30_000, 3000, int(arg), 70_000), 30_000, \
+            3000, 39_000
+    if kind == "run512":                     # matches all the way to limit
+        run = np.random.default_rng(32).integers(0, 256, 512, np.uint8)
+        raw = np.tile(run, 200)
+        return raw, 70_000, 512, len(raw) - 5 - 70_000
+    if kind == "zeros":
+        raw = np.zeros(300_000, np.uint8)
+        return raw, 65_536, 1, len(raw) - 5 - 65_536
+    if kind == "overlap":                    # dist < length: self-overlap
+        dist, length = (int(x) for x in arg.split("/"))
+        return _planted(33, 5000, dist, length), 5000, dist, 20_000
+    if kind == "midwindow":                  # limit ends inside a window
+        limit, length = (int(x) for x in arg.split("/"))
+        return _planted(34, 8000, 700, length), 8000, 700, limit
+    if kind == "past_end":                   # limit beyond the buffer
+        return _planted(35, 39_000, 400, 1000), 39_000, 400, 5000
+    assert kind == "random"
+    rng = np.random.default_rng(int(arg))
+    dist = int(rng.integers(1, 65_536))
+    length = int(rng.integers(0, 3000))
+    start = int(rng.integers(dist, 100_000))
+    return (_planted(int(arg), start, dist, length, 110_000), start, dist,
+            int(rng.integers(1, 110_000 - start)))
+
+
+EXT_CASES = (["limit:0", "limit:-5", "mismatch:0"]
+             + ["mismatch:%d" % (e + d) for e in (64, 320, 1344, 5440, 21824)
+                for d in (-1, 0, 1)]
+             + ["run512", "zeros", "overlap:1/3000", "overlap:3/900",
+                "overlap:100/5000", "midwindow:200/300",
+                "midwindow:1000/999", "midwindow:1000/400", "past_end"]
+             + ["random:%d" % k for k in range(40, 48)])
+
+
+@pytest.mark.parametrize("case", EXT_CASES)
+def test_ext_len_matches_full_scan(case):
+    """The boundary extension's windowed compare returns what the JAX
+    module's full scan of the rest of the block returns."""
+    raw, start, dist, limit = _ext_case(case)
+    assert pt_bb._ext_len(raw, start, dist, limit) \
+        == jax_bb._ext_len(raw, start, dist, limit)
+
+
+def test_default_frame_splice_compares_what_it_extends(monkeypatch,
+                                                       one_torch_thread):
+    """An 8 MiB FrameConfig() frame (4 MB linked blocks) equals the JAX
+    frame, and the splice compares at most 4x each extension it finds plus
+    one 64-byte window a boundary; beyond the extensions found, under 1% of
+    the plaintext. (The payload's JSON half repeats every 1000 records, so
+    one extension genuinely runs to its block's end.)"""
+    data = mixed_payload((8 << 20) + 12_345, 31)
+    found = []
+    ext_len = pt_bb._ext_len
+
+    def logged(*args):
+        found.append(ext_len(*args))
+        return found[-1]
+
+    monkeypatch.setattr(pt_bb, "_ext_len", logged)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = pt.compress_frame(data, pt.FrameConfig(), device="cpu")
+    compared = tracing.counters()["compress_frames"]["splice_cmp_bytes"]
+    tracing.reset()
+    assert got.tobytes() == np.asarray(
+        device_compress_frame(data, engine="split")).tobytes()
+    assert len(found) > 40
+    assert sum(found) <= compared <= 4 * sum(found) + 64 * len(found)
+    assert compared - sum(found) < len(data) // 100
 
 
 @pytest.mark.parametrize("payload", [b"", b"Hello World", b"ab" * 40000],
