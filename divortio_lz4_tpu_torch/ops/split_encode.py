@@ -24,7 +24,7 @@ from .._device import resolve_device
 from ..constants import block_bound
 from ..host import (chain_serialize16_meta_native, chain_serialize16_native,
                     chain_serialize_native)
-from ..tracing import put, span
+from ..tracing import count, put, span
 from .hybrid_encode import CHAIN_CHUNK_ROWS, build_dist_chains, hybrid_max_bs
 
 __all__ = ["encode_blocks_chain", "chain_select_serialize",
@@ -56,6 +56,7 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
                              device=device)
         for i in range(0, nb, CHAIN_CHUNK_ROWS):
             rows = slice(i, min(i + CHAIN_CHUNK_ROWS, nb))
+            count("hist_h2d_bytes", hist_len * (rows.stop - rows.start))
             w = put(work[rows], device)
             ln = put(np.asarray(lens[rows], np.int64), device)
             h = put(hs[rows], device)

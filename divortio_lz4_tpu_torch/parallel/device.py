@@ -336,18 +336,21 @@ def _history_rows(raw, bs, window, linked):
         hist[:, W - len(window):] = window
         return np.concatenate([hist, work], axis=1), lens, nblocks, W, \
             W - len(window)
-    dict_len = len(window) if window is not None else 0
-    hist = np.zeros((nblocks, W), np.uint8)
-    for i in range(nblocks):
-        avail = min(i * bs, W)
-        if avail > 0:
-            hist[i, W - avail:] = raw[i * bs - avail: i * bs]
-        room = W - avail
-        take = min(dict_len, room)
-        if take > 0:
-            hist[i, room - take: room] = window[dict_len - take:]
-    valid = np.minimum(np.arange(nblocks, dtype=np.int64) * bs + dict_len, W)
-    return np.concatenate([hist, work], axis=1), lens, nblocks, W, W - valid
+    with span("encode.history"):
+        dict_len = len(window) if window is not None else 0
+        hist = np.zeros((nblocks, W), np.uint8)
+        for i in range(nblocks):
+            avail = min(i * bs, W)
+            if avail > 0:
+                hist[i, W - avail:] = raw[i * bs - avail: i * bs]
+            room = W - avail
+            take = min(dict_len, room)
+            if take > 0:
+                hist[i, room - take: room] = window[dict_len - take:]
+        valid = np.minimum(np.arange(nblocks, dtype=np.int64) * bs
+                           + dict_len, W)
+        return np.concatenate([hist, work], axis=1), lens, nblocks, W, \
+            W - valid
 
 
 def _compress_split(raw, bs, window, linked, device) -> _EncodeState:
@@ -924,6 +927,7 @@ def _stage_frame(buf, verify_checksum, window, dict_id, device,
     blocks on its own device; every other frame decodes on *device*."""
     with span("frame.index"):
         header, blocks, tail = parse_block_index(buf, verify_checksum)
+        count("decode_blocks", len(blocks))
         bs = header["block_max"]
         if header["dict_id"] is not None:
             if window is None:

@@ -13,11 +13,23 @@ call is a range inside it. Spans open only on the thread that called the
 entry point: a fan-out to the host pool is one span around its submit and
 join, since ranges opened on pool threads are not recorded.
 
-Counters (``count``) add bytes while a profiler is recording, under the
-root that is open on the calling thread: ``h2d_bytes`` (every upload of
-``put``), ``d2h_bytes`` (every fetch of ``_fetch_all``) and
+The span ``encode.history``, inside ``encode.rows``, is the build of the
+history columns of a linked frame's rows in
+``parallel/device._history_rows`` (a loop over the blocks, each row's
+history being the 64 KB of plaintext before it). It opens only where a
+frame of linked blocks up to 64 KB builds its rows, never for independent
+blocks or for the big-block segment rows.
+
+Counters (``count``) add while a profiler is recording, under the root
+that is open on the calling thread: ``h2d_bytes`` (every upload of
+``put``), ``d2h_bytes`` (every fetch of ``_fetch_all``),
 ``splice_cmp_bytes`` (the plaintext that the big-block splice compared to
-extend matches over segment boundaries, ``parallel/bigblock._ext_len``).
+extend matches over segment boundaries, ``parallel/bigblock._ext_len``),
+``hist_h2d_bytes`` (the history columns that the chain builder's row
+uploads carry, ``hist_len`` bytes a row, ``ops/split_encode.
+encode_blocks_chain``; a part of ``h2d_bytes``) and ``decode_blocks`` (the
+blocks of every frame that ``parallel/device._stage_frame`` stages, on
+every route).
 To trace the port, run its calls under ``torch.profiler.profile``, then
 read the ranges from the profile and the totals from ``counters()``.
 """

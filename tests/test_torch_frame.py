@@ -361,6 +361,25 @@ def test_frame_config_matches_jax(block_size):
         dataclasses.asdict(FrameConfig())
 
 
+def test_linked_64k_blocks_match_across_blocks(one_torch_thread):
+    """A 40 KB random chunk repeated to 1 MiB: as linked 64 KB blocks every
+    block after the first matches the plaintext before it, so the frame
+    is below 8% of the payload; as independent 64 KB blocks each block
+    sees only itself and stays above half."""
+    chunk = np.random.default_rng(5).integers(0, 256, 40960).astype(np.uint8)
+    data = np.resize(chunk, 1 << 20)
+    sizes = {}
+    for independent in (False, True):
+        cfg = pt.FrameConfig(block_size=65536,
+                             block_independence=independent)
+        frame = pt.compress_frame(data, cfg, device="cpu")
+        np.testing.assert_array_equal(
+            pt.decompress_frame(frame, device="cpu"), data)
+        sizes[independent] = len(frame)
+    assert sizes[False] < 0.08 * len(data)
+    assert sizes[True] > 0.5 * len(data)
+
+
 @pytest.mark.cuda
 def test_cuda_frames_match_cpu(cuda):
     data, d = _data_and_dict()

@@ -4,8 +4,9 @@ With no profiler recording, a span never reaches ``record_function`` and
 nothing is counted. Under ``torch.profiler`` a CPU round trip in the two
 benchmark deployments' frame settings (lz4bench/configs) opens every span
 of its route as a ``lz4t.*`` range, nested under its root and all on the
-calling thread, and the copy counters equal the bytes of the arrays
-uploaded and fetched, worked out from their shapes.
+calling thread, and the counters equal the bytes of the arrays uploaded
+and fetched, worked out from their shapes, the history columns among the
+uploads, and the blocks of the frame decoded.
 """
 
 import json
@@ -29,7 +30,7 @@ from lz4bench.metrics import _trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 100_000
-DEPLOYMENTS = ("cli64k", "libdefault4m")
+DEPLOYMENTS = ("cli64k", "libdefault4m", "pylz4default")
 
 # Each span of the route with the span it opens under.
 TREE = {
@@ -64,16 +65,35 @@ TREE = {
                        "decode.kernel": "decompress_frames",
                        "frame.fetch": "decompress_frames",
                        "frame.join": "decompress_frames"}},
+    "pylz4default": {
+        "compress": {"encode.rows": "compress_frames",
+                     "encode.history": "encode.rows",
+                     "encode.chains": "compress_frames",
+                     "frame.put": "encode.chains",
+                     "frame.fetch": "compress_frames",
+                     "encode.serialize": "compress_frames",
+                     "frame.assemble": "compress_frames"},
+        "decompress": {"frame.index": "decompress_frames",
+                       "decode.parse": "decompress_frames",
+                       "decode.records": "decompress_frames",
+                       "frame.put": "decompress_frames",
+                       "decode.kernel": "decompress_frames",
+                       "frame.fetch": "decompress_frames",
+                       "frame.join": "decompress_frames"}},
 }
 
 
-# The counters of each root: the copies, and on the big-block compress the
+# The counters of each root: the copies, the history columns among the
+# compress uploads, the blocks decoded, and on the big-block compress the
 # plaintext that the splice's boundary extension compared.
-COPIES = {"h2d_bytes", "d2h_bytes"}
+ENCODE = {"h2d_bytes", "d2h_bytes", "hist_h2d_bytes"}
+DECODE = {"h2d_bytes", "d2h_bytes", "decode_blocks"}
 COUNTERS = {
-    "cli64k": {"compress_frames": COPIES, "decompress_frames": COPIES},
-    "libdefault4m": {"compress_frames": COPIES | {"splice_cmp_bytes"},
-                     "decompress_frames": COPIES}}
+    "cli64k": {"compress_frames": ENCODE, "decompress_frames": DECODE},
+    "libdefault4m": {"compress_frames": ENCODE | {"splice_cmp_bytes"},
+                     "decompress_frames": DECODE},
+    "pylz4default": {"compress_frames": ENCODE,
+                     "decompress_frames": DECODE}}
 
 
 def _config(name):
@@ -151,32 +171,35 @@ def _padded(n):
 
 
 def _expected_bytes(name, data, frame):
-    """(h2d, d2h) of each direction, worked out from the arrays that the
-    route uploads and fetches."""
+    """The counters of each direction, worked out from the arrays that the
+    route uploads and fetches and from the frame's blocks."""
     n = len(data)
     header, blocks, _ = parse_block_index(frame, True)
+    if name == "libdefault4m":
+        _, lens, _, _ = _segment_rows(data, 4194304, None, True)
+        rows, hist = len(lens), 65536
+    elif name == "pylz4default":
+        rows, hist = -(-n // 65536), 65536
+    else:
+        rows, hist = -(-n // 65536), 0
+    # rows u8[rows, hist + 64 KB] ([history | payload]), lengths and
+    # history starts as i64; chains u16[rows, 64 KB]
+    up_c = rows * (hist + 65536) + 2 * 8 * rows
+    down_c = _padded(rows * 65536 * 2)
     if name == "cli64k":
-        bs = 65536
-        nb = -(-n // bs)
-        # rows u8[nb, bs], lengths and history starts i64[nb]; chains u16
-        up_c, down_c = nb * bs + 2 * 8 * nb, _padded(nb * bs * 2)
         entries = [(frame[o: o + s], st) for o, s, st in blocks]
-        wire, recs_l, _, out_lens, _ = parse_wire_raw(entries, bs, None)
+        wire, recs_l, _, out_lens, _ = parse_wire_raw(entries, 65536, None)
         words, rec_off = build_flat_records(recs_l)
         up_d = wire.nbytes + words.nbytes + rec_off.nbytes + out_lens.nbytes
-        down_d = _padded(nb * bs)
     else:
-        work, lens, _, _ = _segment_rows(data, 4194304, None, True)
-        rows = len(lens)
-        # segment rows u8[rows, 128 KB], lengths and history starts as
-        # i64; chains u16[rows, 64 KB]
-        up_c, down_c = work.nbytes + 2 * 8 * rows, _padded(rows * 65536 * 2)
         out_lens, recs_l = plan_blocks(frame, blocks, header, None)
         arrays = build_chain_arrays(frame, blocks, False, out_lens, recs_l)
         up_d = sum(a.nbytes for a in arrays)
-        down_d = _padded(n)
-    return {"compress_frames": {"h2d_bytes": up_c, "d2h_bytes": down_c},
-            "decompress_frames": {"h2d_bytes": up_d, "d2h_bytes": down_d}}
+    down_d = _padded(-(-n // 65536) * 65536 if name == "cli64k" else n)
+    return {"compress_frames": {"h2d_bytes": up_c, "d2h_bytes": down_c,
+                                "hist_h2d_bytes": rows * hist},
+            "decompress_frames": {"h2d_bytes": up_d, "d2h_bytes": down_d,
+                                  "decode_blocks": len(blocks)}}
 
 
 @pytest.mark.parametrize("name", DEPLOYMENTS)
@@ -191,3 +214,4 @@ def test_copy_counters_are_the_arrays_bytes(name, one_torch_thread):
         for key, n in want.items():
             assert got[root][key] == n
     assert got["decompress_frames"]["d2h_bytes"] % 8 == 0
+
