@@ -18,6 +18,9 @@
 //   lz4t_decompress_block    (:408)  one block with a dictionary
 //   lz4t_decompress_frame_body (:547) the host frame decoder's block loop
 //   lz4t_decompress_frame_body_mt (:607) its independent frames on threads
+// The port's own, with no counterpart there:
+//   lz4t_pack_chain_records  the chain decode's record words
+//                            (ops/wave_decode.py build_chain_arrays)
 // Built with g++ at first use by divortio_lz4_tpu_torch/_build.py.
 
 #include <cstdint>
@@ -421,6 +424,35 @@ int64_t lz4t_parse_records2(const uint8_t* src, int64_t src_len,
   }
   *out_len_out = o;
   return nrec;
+}
+
+// ---------------------------------------------------------------------------
+// Chain record words
+// ---------------------------------------------------------------------------
+
+// The chain decode's record words from a frame's wire-direct records (the
+// blocks' lz4t_parse_records2 output back to back, counts[b] records of
+// block b): words[k] = (src + base[b], w1, dst), dst being the running sum
+// of ll + ml, restarted at 0 on every block with first[b] != 0 (a chain's
+// first block). All in u32, wrapping as the callers' u32 fields do.
+void lz4t_pack_chain_records(const uint32_t* recs, const int64_t* counts,
+                             const int64_t* base, const uint8_t* first,
+                             int64_t nblocks, uint32_t* words) {
+  uint32_t dst = 0;
+  for (int64_t b = 0; b < nblocks; b++) {
+    if (first[b]) dst = 0;
+    const uint32_t add = (uint32_t)base[b];
+    const int64_t n = counts[b];
+    for (int64_t j = 0; j < n; j++) {
+      const uint32_t w1 = recs[1];
+      words[0] = recs[0] + add;
+      words[1] = w1;
+      words[2] = dst;
+      dst += ((w1 >> 16) & 0xFF) + (w1 >> 24);
+      recs += 2;
+      words += 3;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

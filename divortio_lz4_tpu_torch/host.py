@@ -8,7 +8,9 @@ The wrappers and the error table are copies of
 ``warm_table_native``, ``compress_frame_body_native``,
 ``decompress_frame_body_native``, ``xxh32_round4_native``,
 ``compress_block_native``, ``decompress_block_native``), with JAX's
-``_nthreads`` rule (``LZ4T_THREADS``, default min(cores, 16)). The
+``_nthreads`` rule (``LZ4T_THREADS``, default min(cores, 16));
+``pack_chain_records_native`` is the port's own (the chain decode's
+record words, ``ops/wave_decode.build_chain_arrays``). The
 library is built with g++ at its first use (``_build.py``), never at
 import. Every function validates its buffers in Python before passing
 pointers, and raises "LZ4: ..." ValueErrors on the C error codes.
@@ -47,6 +49,8 @@ def _lib() -> ctypes.CDLL:
     lib.lz4t_parse_records2.restype = i64
     lib.lz4t_parse_records2.argtypes = [p, i64, i64, p, i64, i64,
                                         ctypes.POINTER(i64)]
+    lib.lz4t_pack_chain_records.restype = None
+    lib.lz4t_pack_chain_records.argtypes = [p, p, p, p, i64, p]
     lib.lz4t_chain_serialize.restype = i64
     lib.lz4t_chain_serialize.argtypes = [p, i64, i64, p, p]
     lib.lz4t_chain_serialize16.restype = i64
@@ -156,6 +160,31 @@ def parse_records2_native(src: np.ndarray, out_cap: int, dict_len: int = 0):
     if rc < 0:
         raise ValueError(_ERRORS.get(rc, "LZ4: Malformed Input"))
     return recs[:rc], int(out_len.value)
+
+
+def pack_chain_records_native(recs: np.ndarray, counts, base, first):
+    """Chain record words (see lz4t_pack_chain_records): *recs* u32[N, 2]
+    holds every block's (src, w1) records back to back, ``counts[b]`` of
+    block b; returns u32[N, 3] with words[k] = (src + base[b], w1, dst),
+    dst the u32 running sum of ll + ml since the last block whose
+    ``first[b]`` is set. One pass on the calling thread."""
+    recs = np.ascontiguousarray(recs)
+    if recs.ndim != 2 or recs.shape[1] != 2 \
+            or recs.dtype not in (np.uint32, np.int32):
+        raise ValueError("recs must be a 32-bit [N, 2] integer array")
+    recs = recs.view(np.uint32)
+    counts = np.ascontiguousarray(counts, np.int64)
+    base = np.ascontiguousarray(base, np.int64)
+    first = np.ascontiguousarray(first, np.uint8)
+    nb = len(counts)
+    if len(base) != nb or len(first) != nb:
+        raise ValueError("counts, base and first must have one entry a block")
+    if nb and (counts.min() < 0 or int(counts.sum()) != len(recs)):
+        raise ValueError("counts must be >= 0 and sum to len(recs)")
+    words = np.empty((len(recs), 3), np.uint32)
+    _lib().lz4t_pack_chain_records(_ptr(recs), _ptr(counts), _ptr(base),
+                                   _ptr(first), nb, _ptr(words))
+    return words
 
 
 def _check_serialize(work, hist_len, src_len, chain, out,

@@ -22,7 +22,10 @@ interleave ways and per-wave record budgets to fit VMEM and SMEM, and gave
 up (``None``) on giant-RLE pieces and dense waves. The GPU kernels keep a
 chain's output and records in device memory, so none of that is ported:
 every block parses whole (``parse_records_wire``) and every frame the host
-scanner accepts decodes here.
+scanner accepts decodes here. ``build_chain_arrays`` packs a frame's
+record words in one native pass (``lz4t_pack_chain_records`` of
+``csrc/host_kernels.cpp``); ``stage_chains`` adds their number to the
+counter ``chain_records`` while a profiler records.
 
 The kernels do not walk a chain in order: they resolve its matches in
 parallel (``ops/resolve.py``; ``record_spans`` and
@@ -42,8 +45,8 @@ import numpy as np
 import torch
 
 from .._build import load_library
-from ..host import scan_pieces_native
-from ..tracing import put, span
+from ..host import pack_chain_records_native, scan_pieces_native
+from ..tracing import count, put, span
 from ..utils import host_pool
 from .resolve import (NO_PERIOD, SEGMENT, Lits, Matches, ResolveRun,
                       resolve_segments, rounds_for)
@@ -166,15 +169,11 @@ def build_chain_arrays(buf: np.ndarray, blocks, independent: bool,
         .astype(np.int64)
     out_off = np.concatenate([[0], np.cumsum(per_chain(out_lens))]) \
         .astype(np.int64)
-    words = np.zeros((int(rec_off[-1]), 3), np.uint32)
-    if len(words):
-        r = np.concatenate(recs_l).astype(np.int64)
-        tot = ((r[:, 1] >> 16) & 0xFF) + ((r[:, 1] >> 24) & 0xFF)
-        run = np.cumsum(tot)
-        base = np.concatenate([[0], run])[rec_off[:-1]]
-        words[:, 0] = r[:, 0] + np.repeat(in_chain, counts)
-        words[:, 1] = r[:, 1]
-        words[:, 2] = run - tot - np.repeat(base, np.diff(rec_off))
+    # dst restarts at each chain's first block
+    first = np.full(nb, independent, np.uint8)
+    first[:1] = 1
+    recs = np.concatenate(recs_l) if nb else np.empty((0, 2), np.uint32)
+    words = pack_chain_records_native(recs, counts, in_chain, first)
     return wire, wire_off, words.view(np.int32), rec_off, out_off
 
 
@@ -185,6 +184,7 @@ def stage_chains(buf: np.ndarray, blocks, header, window,
     with span("decode.records"):
         arrays = build_chain_arrays(buf, blocks, header["independent"],
                                     out_lens, recs_l)
+        count("chain_records", len(arrays[2]))
     seed = None
     if window is not None and len(window):
         seed = np.zeros(W, np.uint8)

@@ -27,9 +27,12 @@ that is open on the calling thread: ``h2d_bytes`` (every upload of
 extend matches over segment boundaries, ``parallel/bigblock._ext_len``),
 ``hist_h2d_bytes`` (the history columns that the chain builder's row
 uploads carry, ``hist_len`` bytes a row, ``ops/split_encode.
-encode_blocks_chain``; a part of ``h2d_bytes``) and ``decode_blocks`` (the
+encode_blocks_chain``; a part of ``h2d_bytes``), ``decode_blocks`` (the
 blocks of every frame that ``parallel/device._stage_frame`` stages, on
-every route).
+every route) and ``chain_records`` (the records whose words the native
+pass of ``ops/wave_decode.build_chain_arrays`` packed, inside
+``decode.records``; only a linked frame or one of blocks over 256 KB
+takes that route).
 To trace the port, run its calls under ``torch.profiler.profile``, then
 read the ranges from the profile and the totals from ``counters()``.
 """

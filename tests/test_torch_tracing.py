@@ -84,16 +84,18 @@ TREE = {
 
 
 # The counters of each root: the copies, the history columns among the
-# compress uploads, the blocks decoded, and on the big-block compress the
-# plaintext that the splice's boundary extension compared.
+# compress uploads, the blocks decoded, on the big-block compress the
+# plaintext that the splice's boundary extension compared, and on the
+# chain route (linked frames) the records whose words it packed.
 ENCODE = {"h2d_bytes", "d2h_bytes", "hist_h2d_bytes"}
 DECODE = {"h2d_bytes", "d2h_bytes", "decode_blocks"}
+CHAIN = DECODE | {"chain_records"}
 COUNTERS = {
     "cli64k": {"compress_frames": ENCODE, "decompress_frames": DECODE},
     "libdefault4m": {"compress_frames": ENCODE | {"splice_cmp_bytes"},
-                     "decompress_frames": DECODE},
+                     "decompress_frames": CHAIN},
     "pylz4default": {"compress_frames": ENCODE,
-                     "decompress_frames": DECODE}}
+                     "decompress_frames": CHAIN}}
 
 
 def _config(name):
@@ -186,6 +188,7 @@ def _expected_bytes(name, data, frame):
     # history starts as i64; chains u16[rows, 64 KB]
     up_c = rows * (hist + 65536) + 2 * 8 * rows
     down_c = _padded(rows * 65536 * 2)
+    decode = {"decode_blocks": len(blocks)}
     if name == "cli64k":
         entries = [(frame[o: o + s], st) for o, s, st in blocks]
         wire, recs_l, _, out_lens, _ = parse_wire_raw(entries, 65536, None)
@@ -195,11 +198,12 @@ def _expected_bytes(name, data, frame):
         out_lens, recs_l = plan_blocks(frame, blocks, header, None)
         arrays = build_chain_arrays(frame, blocks, False, out_lens, recs_l)
         up_d = sum(a.nbytes for a in arrays)
+        decode["chain_records"] = int(arrays[3][-1])
     down_d = _padded(-(-n // 65536) * 65536 if name == "cli64k" else n)
     return {"compress_frames": {"h2d_bytes": up_c, "d2h_bytes": down_c,
                                 "hist_h2d_bytes": rows * hist},
             "decompress_frames": {"h2d_bytes": up_d, "d2h_bytes": down_d,
-                                  "decode_blocks": len(blocks)}}
+                                  **decode}}
 
 
 @pytest.mark.parametrize("name", DEPLOYMENTS)

@@ -120,6 +120,110 @@ def test_chain_arrays_layout():
             assert tot[r].sum() == out_off[c + 1] - out_off[c]
 
 
+def _numpy_chain_arrays(buf, blocks, independent, out_lens, recs_l):
+    """build_chain_arrays as whole-array numpy passes, the port's packing
+    before its record words moved into one native pass: the oracle of
+    its five arrays."""
+    SLACK, U32 = pt_wd.SLACK, pt_wd.U32
+    nb = len(blocks)
+    if independent:
+        starts = np.arange(nb + 1)
+    else:
+        starts = np.array([0, nb])
+    sizes = np.array([size for _, size, _ in blocks], np.int64)
+    counts = np.array([len(r) for r in recs_l], np.int64)
+    nc = len(starts) - 1
+
+    def per_chain(x):
+        cs = np.concatenate([[0], np.cumsum(x)])
+        return cs[starts[1:]] - cs[starts[:-1]]
+
+    chain_wire = per_chain(sizes) + SLACK
+    if nc and max(chain_wire.max(), per_chain(out_lens).max()) >= U32:
+        raise ValueError("chain of 4 GiB or more: its records' u32 src/dst "
+                         "would wrap")
+    wire_off = np.concatenate([[0], np.cumsum(chain_wire)]).astype(np.int64)
+    chain_of = np.repeat(np.arange(nc), np.diff(starts))
+    cum = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    in_chain = cum - cum[starts[:-1]][chain_of] if nb else cum
+    wire = np.zeros(int(wire_off[-1]), np.uint8)
+    for b, (off, size, _) in enumerate(blocks):
+        at = int(wire_off[chain_of[b]] + in_chain[b])
+        wire[at: at + size] = buf[off: off + size]
+
+    rec_off = np.concatenate([[0], np.cumsum(per_chain(counts))]) \
+        .astype(np.int64)
+    out_off = np.concatenate([[0], np.cumsum(per_chain(out_lens))]) \
+        .astype(np.int64)
+    words = np.zeros((int(rec_off[-1]), 3), np.uint32)
+    if len(words):
+        r = np.concatenate(recs_l).astype(np.int64)
+        tot = ((r[:, 1] >> 16) & 0xFF) + ((r[:, 1] >> 24) & 0xFF)
+        run = np.cumsum(tot)
+        base = np.concatenate([[0], run])[rec_off[:-1]]
+        words[:, 0] = r[:, 0] + np.repeat(in_chain, counts)
+        words[:, 1] = r[:, 1]
+        words[:, 2] = run - tot - np.repeat(base, np.diff(rec_off))
+    return wire, wire_off, words.view(np.int32), rec_off, out_off
+
+
+# (block size, independent, with dictionary, stored island, plaintext bytes)
+WORD_CASES = {
+    "linked_4m": (4 * MB, False, False, False, 4_500_000),
+    "linked_64k_dict": (64 * KB, False, True, False, 600_000),
+    "independent_1m": (MB, True, False, False, 2_300_000),
+    "linked_256k_stored": (256 * KB, False, False, True, 600_000),
+}
+
+
+def _word_inputs(case):
+    """(buf, blocks, [independent], out_lens, recs_l) of a case: a parsed
+    frame, no records at all, or random u32 words whose src wraps."""
+    if case == "no_records":
+        blocks = [(0, 10, False), (10, 6, True), (16, 0, False)]
+        return (np.arange(16, dtype=np.uint8), blocks, [False, True],
+                np.array([5, 6, 0], np.int64),
+                [np.empty((0, 2), np.uint32)] * 3)
+    if case == "random_words":
+        rng = np.random.default_rng(43)
+        blocks = [(0, 3000, False), (3000, 5, False), (3005, 900, False)]
+        recs_l = [rng.integers(0, 1 << 32, (n, 2), dtype=np.uint32)
+                  for n in (700, 0, 300)]
+        return (rng.integers(0, 256, 3905, dtype=np.uint8), blocks,
+                [False, True], np.array([1000, 0, 7], np.int64), recs_l)
+    bs, indep, use_dict, stored, n = WORD_CASES[case]
+    data = mixed_corpus(n, seed=44)
+    if stored:
+        rng = np.random.default_rng(42)
+        data[: 300_000] = rng.integers(0, 256, 300_000, np.uint8)
+    d = _dict(data) if use_dict else None
+    frame = np.asarray(lz4.compress(data, dictionary=d, config=FrameConfig(
+        block_size=bs, block_independence=indep, content_checksum=True)))
+    header, blocks, _ = parse_block_index(frame)
+    assert len(blocks) > 1
+    assert any(st for _, _, st in blocks) == stored
+    out_lens, recs_l = pt_wd.plan_blocks(
+        frame, blocks, header, None if d is None else d[-65536:])
+    return frame, blocks, [indep], out_lens, recs_l
+
+
+@pytest.mark.parametrize("case", list(WORD_CASES) + ["no_records",
+                                                     "random_words"])
+def test_chain_words_match_numpy_packing(case):
+    """The native pass packs the same five arrays as the numpy passes it
+    replaced, byte for byte: src plus the block's offset in its chain's
+    image, w1, and dst restarting at every chain (each block of an
+    independent frame), all wrapping as u32."""
+    buf, blocks, modes, out_lens, recs_l = _word_inputs(case)
+    for independent in modes:
+        want = _numpy_chain_arrays(buf, blocks, independent, out_lens, recs_l)
+        got = pt_wd.build_chain_arrays(buf, blocks, independent, out_lens,
+                                       recs_l)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("reach", ["output", "wire"])
 def test_chain_arrays_refuse_u32_wrap(reach):
     """A linked chain whose output or compressed image reaches 4 GiB is
