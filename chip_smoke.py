@@ -752,9 +752,9 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
     from divortio_lz4_tpu_torch.ops.token_decode import (
         decode_blocks_pallas, decode_blocks_pallas_plain, decode_token_chains,
         decode_token_chains_plain)
+    from divortio_lz4_tpu_torch.parallel.bigblock import history_rows
     from divortio_lz4_tpu_torch.parallel.device import (
-        _blocks_to_batch, parse_block_index, stage_token_blocks,
-        stage_token_chains)
+        parse_block_index, stage_token_blocks, stage_token_chains)
 
     rng = np.random.default_rng(seed + 8)
     B = 65536
@@ -804,7 +804,7 @@ def _phase8(torch, pt, dev, corpus, ref_frame, dict_frame, d,
             torch, f"greedy_encode {len(far)} x {bs >> 10} KB rows with "
             "repeats 65535 and 65536 bytes back", encode_blocks_pallas(
                 fw, fl, bs), encode_blocks_pallas_plain(fw, fl, bs), tag, 8))
-    mw, ml, _ = _blocks_to_batch(corpus, B)
+    _, mw, ml = history_rows(corpus, B, B, None, False)[:3]
     mw = torch.from_numpy(mw).to(dev)
     ml = torch.from_numpy(ml.astype(np.int64)).to(dev)
     mout = encode_blocks_pallas(mw, ml, B)
@@ -1108,16 +1108,16 @@ def _split_exact_frame(pt, corpus, cfg, dev):
     """The split engine's frame of *corpus* (independent blocks of at most
     64 KB, no dictionary) with exact-word chains instead of hashed ones."""
     from divortio_lz4_tpu_torch.ops.split_encode import encode_blocks_chain
-    from divortio_lz4_tpu_torch.parallel.device import (
-        _assemble_frame_host, _EncodeState, _history_rows,
-        _split_encode_fetch)
+    from divortio_lz4_tpu_torch.parallel.bigblock import (history_rows,
+                                                          serialize_rows)
+    from divortio_lz4_tpu_torch.parallel.device import _assemble_frame_host
     bs = cfg.resolved_block_size
-    work, lens, nb, hl, hs = _history_rows(corpus, bs, None, False)
-    chains = encode_blocks_chain(work, lens, bs, hl, hs, device=dev,
-                                 exact=True)
-    st = _EncodeState(corpus, work, lens, nb, bs, hl, chains)
-    return _assemble_frame_host(corpus, _split_encode_fetch(
-        st, chains.cpu().numpy()), lens, nb, bs, cfg, None)
+    rows = history_rows(corpus, bs, bs, None, False)
+    chains = encode_blocks_chain(rows.work, rows.lens, bs, rows.hist_len,
+                                 rows.hist_start, device=dev, exact=True)
+    streams, _ = serialize_rows(rows, chains.cpu().numpy())
+    return _assemble_frame_host(corpus, streams, rows.lens, len(rows.lens),
+                                bs, cfg, None)
 
 
 def _walk_hostile(rng) -> list:
@@ -1145,8 +1145,7 @@ def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
         hybrid_walk, hybrid_walk_plain)
     from divortio_lz4_tpu_torch.ops.split_encode import (
         chain_select_serialize_meta)
-    from divortio_lz4_tpu_torch.parallel.device import (_blocks_to_batch,
-                                                        _history_rows)
+    from divortio_lz4_tpu_torch.parallel.bigblock import history_rows
 
     rng = np.random.default_rng(seed + 9)
     B = 65536
@@ -1157,7 +1156,8 @@ def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
     rows += [np.zeros(B, np.uint8), corpus[:10], corpus[:0]]
     dict_hist = np.zeros((8, B), np.uint8)
     dict_hist[:, B - len(d):] = d
-    lwork, llens, _, _, lstart = _history_rows(corpus[:8 * B], B, None, True)
+    _, lwork, llens, _, lstart = history_rows(corpus[:8 * B], B, B, None,
+                                              True)
     batches = {
         f"{len(rows)} rows (32 corpus, 8 random, zero, short, empty)":
             _rows_batch(torch, rows, dev) + (0,),
@@ -1234,7 +1234,7 @@ def _phase9(torch, pt, dev, corpus, ref_frame, d, seed, tag):
           f"hybrid_encode launches {launches} {tag}")
     print(f"phase 9: engine='hybrid': encode {n / enc_s / 1e6:.1f} MB/s "
           f"(median of 3; {t_enc} s) {tag}")
-    mw, ml, _ = _blocks_to_batch(corpus, B)
+    _, mw, ml = history_rows(corpus, B, B, None, False)[:3]
     mw = torch.from_numpy(mw).to(dev)
     ml = torch.from_numpy(ml.astype(np.int64)).to(dev)
     chains = torch.cat([build_chains(mw[i: i + 128], ml[i: i + 128], 0, 0)
@@ -1358,6 +1358,7 @@ def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
     from divortio_lz4_tpu_torch.ops import split_encode
     from divortio_lz4_tpu_torch.ops.hybrid_encode import CHAIN_CHUNK_ROWS
     from divortio_lz4_tpu_torch.parallel import device as pdev
+    from divortio_lz4_tpu_torch.parallel.bigblock import history_rows
 
     # No fallback: every row pass of the engine must run on the card.
     on_card = {}
@@ -1435,7 +1436,8 @@ def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
           f"{dec_rounds} {tag}")
 
     # the frame's rows, as the main path builds them
-    work, lens, nb, _, _ = pdev._history_rows(corpus, 65536, None, False)
+    _, work, lens = history_rows(corpus, 65536, 65536, None, False)[:3]
+    nb = len(lens)
     d_work = torch.from_numpy(work).to(dev)
     d_lens = torch.from_numpy(lens.astype(np.int64)).to(dev)
     _, blocks, _ = pdev.parse_block_index(frame)

@@ -1,17 +1,21 @@
-"""Big-block encode (256 KB / 1 MB / 4 MB blocks): 64 KB segments + host
-splice.
+"""Split-engine encode at every block size: 64 KB segments + host splice.
 
 Port of the encode half of ``divortio_lz4_tpu/parallel/bigblock.py``. LZ4
 match offsets never exceed 64 KB, so every 64 KB segment of a block encodes
-on its own with the preceding 64 KB of plaintext as a history row
-(``_segment_rows``): the device builds the segments' u16 chains with the
+on its own with the preceding 64 KB of plaintext as its history
+(``history_rows``): the device builds the segments' u16 chains with the
 port's chain builder (``ops/split_encode.encode_blocks_chain``), the native
 host tier serializes each segment with the splice meta
-(``chain_select_serialize_meta``), and ``_splice_block`` joins a block's
-segment streams into one spec-exact block stream. The frame is
-byte-identical to the JAX ``compress_frame_big``.
+(``serialize_rows``, ``chain_select_serialize_meta``), and
+``_splice_block`` joins a block's segment streams into one spec-exact
+block stream. A 64 KB block is one segment, whose stream is the block's:
+the same rows and serializer give the JAX package's small-block split
+frames (``_compress_independent_split``, ``_compress_linked_split``), and
+bigger blocks its ``compress_frame_big`` frames, byte for byte.
+``history_rows`` also builds the whole-block rows of the row encoders
+(``parallel/device._queue_compress_rows``).
 
-The host helpers from ``_segment_rows`` to ``_splice_block`` are verbatim
+The splice helpers from ``_seq_header`` to ``_splice_block`` are verbatim
 copies of the JAX module's (it cannot be imported: its package imports
 jax), all but ``_ext_len``: the JAX one compares the whole rest of the
 block at every segment boundary, the port's compares in growing windows
@@ -21,12 +25,13 @@ The decode half lives in ``ops/wave_decode.py``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..constants import WINDOW_SIZE, block_bound
+from ..constants import WINDOW_SIZE
 from ..ops.split_encode import chain_select_serialize_meta, encode_blocks_chain
 from ..tracing import count, span
 from ..utils import host_pool
@@ -37,80 +42,91 @@ _EXT_GROW = 4                # and the factor of each next window
 
 
 # --------------------------------------------------------------------------
-# Encode: 64 KB segment rows + host splice
+# Encode: [history | payload] rows, serializer, host splice
 # --------------------------------------------------------------------------
 
-def _segment_rows(raw: np.ndarray, bs: int, window: Optional[np.ndarray],
-                  linked: bool):
-    """[64 KB history | 64 KB payload] rows for every segment of every block.
+class Rows(NamedTuple):
+    """A frame's ``[history | payload]`` rows (``history_rows``)."""
+    flat: np.ndarray        # u8[nrows * (hist_len + row) + 8]: rows, slack
+    work: np.ndarray        # u8[nrows, hist_len + row], a view of flat
+    lens: np.ndarray        # i32[nrows] payload sizes
+    hist_len: int           # 64 KB, or 0 where no row has history
+    hist_start: np.ndarray  # i32[nrows] first valid history index
 
-    Independent blocks clip history at the block start (dictionary window
-    fills the remainder); linked blocks see prior-block plaintext too —
-    identical context to what a single continuous encoder would use.
-    Returns (work u8[nrows, W+SEG], lens i32, hist_start i32,
-    seg_rows: list of per-block [row indices]).
-    """
+
+def history_rows(raw: np.ndarray, bs: int, row: int,
+                 window: Optional[np.ndarray], linked: bool) -> Rows:
+    """The rows every device encoder reads: *row* payload bytes each
+    (64 KB segments for the split route, whole blocks for the row
+    encoders), tiling the plaintext, so that block b owns rows
+    ``[b * bs/row, (b+1) * bs/row)``; an empty payload is one empty row.
+
+    A row's history is the 64 KB of plaintext before it, counted from the
+    frame start for linked blocks and from its block's start for
+    independent ones; a row is at least 64 KB wide, so that is all 64 KB
+    or nothing. A row without it gets the dictionary *window*
+    right-aligned instead (the context a continuous encoder sees), and
+    ``hist_start`` is the first valid history index. The history columns
+    are left out (``hist_len`` 0) when no row can have history:
+    independent blocks of one row each, no dictionary. The rows sit in
+    one flat buffer with 8 trailing bytes, so a serializer can read its 8
+    slack bytes past any row."""
     W = WINDOW_SIZE
     n = len(raw)
-    dict_len = len(window) if window is not None else 0
-    nblocks = max(1, -(-n // bs))
-    seg_rows = []
-    rows = []
-    lens = []
-    hist_start = []
-    for b in range(nblocks):
-        bstart = b * bs
-        bend = min(bstart + bs, n)
-        nseg = max(1, -(-(bend - bstart) // SEG))
-        rlist = []
-        for j in range(nseg):
-            sstart = bstart + j * SEG
-            send = min(sstart + SEG, bend)
-            row = np.zeros(W + SEG, np.uint8)
-            row[W: W + (send - sstart)] = raw[sstart:send]
-            floor = 0 if linked else bstart
-            avail = min(sstart - floor, W)
-            if avail > 0:
-                row[W - avail: W] = raw[sstart - avail: sstart]
-            room = W - avail
-            take = min(dict_len, room)
-            if take > 0:
-                row[room - take: room] = window[dict_len - take:]
-            rows.append(row)
-            lens.append(send - sstart)
-            hist_start.append(room - take)
-            rlist.append(len(rows) - 1)
-        seg_rows.append(rlist)
-    return (np.stack(rows), np.array(lens, np.int32),
-            np.array(hist_start, np.int32), seg_rows)
+    per = bs // row
+    nrows = max(1, -(-n // row))
+    k = np.arange(nrows)
+    lens = np.minimum(n - k * row, row).astype(np.int32)
+    hist_len = W if linked or per > 1 or window is not None else 0
+    # every byte is written once: plaintext, dictionary or zero
+    flat = np.empty(nrows * (hist_len + row) + 8, np.uint8)
+    flat[-8:] = 0
+    work = flat[:-8].reshape(nrows, hist_len + row)
+    full = n // row
+    work[:full, hist_len:] = raw[: full * row].reshape(full, row)
+    if full < nrows:
+        work[full, hist_len: hist_len + n - full * row] = raw[full * row:]
+        work[full, hist_len + n - full * row:] = 0
+    cont = k > 0 if linked else k % per > 0   # history is plaintext
+    take = min(len(window), W) if window is not None and hist_len else 0
+    if hist_len:
+        # the history of a linked frame's block rows is span encode.history
+        with span("encode.history") if linked and per == 1 \
+                else contextlib.nullcontext():
+            tails = raw[: (nrows - 1) * row].reshape(nrows - 1, row)[:, -W:]
+            if linked:
+                work[1:, :W] = tails
+            else:
+                at = np.flatnonzero(cont)
+                work[at, :W] = tails[at - 1]
+            work[~cont, : W - take] = 0
+            if take:
+                work[~cont, W - take: W] = window[len(window) - take:]
+    hist_start = np.where(cont, 0, hist_len - take).astype(np.int32)
+    return Rows(flat, work, lens, hist_len, hist_start)
 
 
-def _encode_segments(work: np.ndarray, lens: np.ndarray,
-                     chains: np.ndarray):
-    """Serialize every segment row from its fetched u16 chain (native, on
-    the host pool). Returns (outs u8[nrows, OW], out_lens i64, meta
-    i64[nrows, 4]) with the splice meta lanes: trailing-token position,
-    trailing literal count, last-match-sequence stream offset, last-match
-    output anchor (lz4t_chain_serialize16m)."""
-    nrows, rowlen = work.shape
+def serialize_rows(rows: Rows, chains: np.ndarray):
+    """Serialize every row from its fetched u16 chain (native, on the host
+    pool), each read in place in the rows' flat buffer. Returns (streams,
+    meta i64[nrows, 4]) with the splice meta lanes: trailing-token
+    position, trailing literal count, last-match-sequence stream offset,
+    last-match output anchor (lz4t_chain_serialize16m)."""
+    flat, work, lens, hist_len = rows[:4]
+    width = work.shape[1]
+    streams = [None] * len(lens)
+    metas = np.empty((len(lens), 4), np.int64)
     with span("encode.serialize"):
-        # serializer reads 8-byte words past hist+src: pad rows once
-        wk = np.zeros((nrows, rowlen + 8), np.uint8)
-        wk[:, :rowlen] = work
-        OW = block_bound(SEG) + 16
-        outs = np.zeros((nrows, OW), np.uint8)
-        out_lens = np.zeros(nrows, np.int64)
-        metas = np.zeros((nrows, 4), np.int64)
-
         def _ser_one(k):
-            s, meta = chain_select_serialize_meta(wk[k], WINDOW_SIZE,
-                                                  int(lens[k]), chains[k])
-            outs[k, : len(s)] = s
-            out_lens[k] = len(s)
-            metas[k] = meta
+            src_len = int(lens[k])
+            at = k * width
+            streams[k], metas[k] = chain_select_serialize_meta(
+                flat[at: at + hist_len + src_len + 8], hist_len, src_len,
+                chains[k])
 
-        list(host_pool().map(_ser_one, range(nrows)))
-    return outs, out_lens, metas
+        # The native serializer releases the GIL: rows run in parallel.
+        list(host_pool().map(_ser_one, range(len(lens))))
+    return streams, metas
 
 
 def _seq_header(lit_len: int, low_nibble: int) -> np.ndarray:
@@ -382,46 +398,43 @@ def _splice_block(raw: np.ndarray, bstart: int, bend: int, streams, metas,
     return np.concatenate(parts) if parts else np.empty(0, np.uint8)
 
 
-class BigEncodeState(NamedTuple):
-    """One big-block frame with its segment chains queued on the device."""
+class EncodeState(NamedTuple):
+    """One split-engine frame with its row chains queued on the device."""
     raw: np.ndarray
     bs: int
     linked: bool
-    seg_rows: list           # per block, its segment row indices
-    work: np.ndarray         # u8[nrows, W + SEG] segment rows
-    lens: np.ndarray         # i32[nrows] segment payload sizes
+    rows: Rows               # 64 KB segment rows
     chains: torch.Tensor     # u16[nrows, SEG] on the device, queued
 
 
 def queue_frame_big(raw: np.ndarray, bs: int, window: Optional[np.ndarray],
-                    linked: bool, device) -> BigEncodeState:
+                    linked: bool, device) -> EncodeState:
     """Build a frame's segment rows and queue their chains on *device*
-    (the dispatch half of ``compress_frame_big``)."""
+    (the dispatch half of ``compress_frame_big``), at every block size."""
     with span("encode.rows"):
-        work, lens, hist_start, seg_rows = _segment_rows(raw, bs, window,
-                                                         linked)
-    chains = encode_blocks_chain(work, lens, SEG, WINDOW_SIZE, hist_start,
-                                 device=device)
-    return BigEncodeState(raw, bs, linked, seg_rows, work, lens, chains)
+        rows = history_rows(raw, bs, SEG, window, linked)
+    chains = encode_blocks_chain(rows.work, rows.lens, SEG, rows.hist_len,
+                                 rows.hist_start, device=device)
+    return EncodeState(raw, bs, linked, rows, chains)
 
 
-def splice_blocks_big(state: BigEncodeState, chains_np: np.ndarray) -> list:
+def splice_blocks_big(state: EncodeState, chains_np: np.ndarray) -> list:
     """Serialize every segment from its fetched chain and splice each
     block's segments into one block stream (``_finish_frame_big`` without
-    the frame assembly). Returns the blocks' streams."""
-    raw, bs, linked, seg_rows, work, lens = state[:6]
-    n = len(raw)
-    outs, out_lens, metas = _encode_segments(work, lens, chains_np)
+    the frame assembly); a 64 KB block is its one segment's stream.
+    Returns the blocks' streams."""
+    raw, bs, linked, rows = state[:4]
+    streams, metas = serialize_rows(rows, chains_np)
+    if bs == SEG:
+        return streams
+    per = bs // SEG
     comps = []
     with span("encode.splice"):
-        for b, rlist in enumerate(seg_rows):
-            bstart = b * bs
-            bend = min(bstart + bs, n)
+        for first in range(0, len(streams), per):
+            bstart = first * SEG
+            seg = slice(first, first + per)
             comps.append(_splice_block(
-                raw, bstart, bend,
-                [outs[r][: int(out_lens[r])] for r in rlist],
-                [metas[r] for r in rlist],
-                [lens[r] for r in rlist],
+                raw, bstart, min(bstart + bs, len(raw)), streams[seg],
+                metas[seg], rows.lens[seg],
                 src_floor=0 if linked else bstart))
     return comps
-

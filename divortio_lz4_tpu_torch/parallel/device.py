@@ -9,14 +9,13 @@ package's single-frame default is "xla".
 
 Split engine:
 
-- Encode, blocks of up to 64 KB: ``_compress_split`` queues the chain
-  builder on ``_history_rows``' rows on the device
-  (``ops/split_encode.encode_blocks_chain``); ``_split_encode_fetch``
-  serializes every block on the host pool and ``_assemble_frame_host``
-  builds the frame.
-- Encode, larger blocks (either mode): 64 KB segments with 64 KB history
-  rows through the same chain builder, then a host splice per block
-  (``parallel/bigblock.py``).
+- Encode, every block size and mode: ``parallel/bigblock.py`` holds the
+  encoder. ``queue_frame_big`` queues the chain build
+  (``ops/split_encode.encode_blocks_chain``) on the frame's 64 KB segment
+  rows with their 64 KB of history; ``splice_blocks_big`` serializes every
+  segment on the host pool and splices a bigger block's segments into one
+  stream (a 64 KB block is one segment); ``_assemble_frame_host`` builds
+  the frame.
 - Decode routes as the JAX package does:
   independent <= 64 KB blocks -> compact kernel (``ops/compact_decode``);
   independent 256 KB blocks -> padded wire kernel (``ops/wire_decode``);
@@ -102,7 +101,6 @@ from ..ops.greedy_encode import encode_blocks_pallas
 from ..ops.hybrid_encode import encode_blocks_hybrid
 from ..ops.linked_xla import decode_linked_scan
 from ..ops.split_decode import from_reference_records, parse_wire_raw
-from ..ops.split_encode import chain_select_serialize, encode_blocks_chain
 from ..ops.token_decode import (TokenChains, decode_blocks_pallas,
                                 decode_token_chains)
 from ..ops.wave_decode import block_pieces, decode_chains, stage_chains
@@ -110,10 +108,11 @@ from ..ops.wire_decode import decode_blocks_wire, parse_wire_batch
 from ..tracing import count, put, span
 from ..utils import ensure_buffer, host_pool, read_u32le, write_u32le
 from ..xxh import xxhash32
-from .bigblock import queue_frame_big, splice_blocks_big
+from .bigblock import (SEG, history_rows, queue_frame_big,
+                       splice_blocks_big)
 
-# Largest block the compact decode kernel and the one-row chain encode take
-# (u16 record and chain fields); bigger blocks encode in 64 KB segments.
+# Largest block the compact decode kernel takes (u16 record fields); the
+# split engine sends bigger blocks through JAX's big-block encode routes.
 SPLIT_MAX_BS = 65536
 # Largest independent block the padded wire kernel decodes
 # (device.py:_SPLIT_MAX_BS); bigger ones decode as chains.
@@ -127,18 +126,6 @@ DECODE_ENGINES = ("split", "pallas", "xla", "hybrid")
 PALLAS_SLACK = 256
 PALLAS_VMEM_BUDGET = 6 * 1024 * 1024
 PALLAS_LINKED_MAX_BS = 262144
-
-
-def _blocks_to_batch(raw: np.ndarray, block_size: int):
-    n = len(raw)
-    nblocks = max(1, -(-n // block_size))
-    work = np.zeros((nblocks, block_size), dtype=np.uint8)
-    lens = np.zeros(nblocks, dtype=np.int32)
-    for i in range(nblocks):
-        chunk = raw[i * block_size: (i + 1) * block_size]
-        work[i, : len(chunk)] = chunk
-        lens[i] = len(chunk)
-    return work, lens, nblocks
 
 
 def _frame_header_bytes(config: FrameConfig, n: int,
@@ -307,97 +294,6 @@ def _round_up(x: int, m: int) -> int:
 # Encode
 # ---------------------------------------------------------------------------
 
-class _EncodeState(NamedTuple):
-    raw: np.ndarray
-    work: np.ndarray        # u8[nb, hist_len + bs]
-    lens: np.ndarray        # i32[nb]
-    nblocks: int
-    bs: int
-    hist_len: int
-    chains: torch.Tensor    # u16[nb, bs] on the device, still queued
-
-
-def _history_rows(raw, bs, window, linked):
-    """A frame's block rows, with the history the encoders see (the JAX
-    ``_compress_independent_split``, ``_compress_linked_split`` and
-    ``_compress_linked`` row builds). Independent blocks see the dictionary,
-    if any, as [64 KB window (right-aligned) | payload]; linked blocks see
-    [64 KB history | payload], the history being the preceding plaintext
-    topped up with the dictionary, so the blocks encode independently of
-    one another. Returns (work u8[nb, hist_len + bs], lens i32[nb],
-    nblocks, hist_len, hist_start: the first valid history index, an int
-    or an i64[nb])."""
-    work, lens, nblocks = _blocks_to_batch(raw, bs)
-    W = WINDOW_SIZE
-    if not linked:
-        if window is None:
-            return work, lens, nblocks, 0, 0
-        hist = np.zeros((nblocks, W), np.uint8)
-        hist[:, W - len(window):] = window
-        return np.concatenate([hist, work], axis=1), lens, nblocks, W, \
-            W - len(window)
-    with span("encode.history"):
-        dict_len = len(window) if window is not None else 0
-        hist = np.zeros((nblocks, W), np.uint8)
-        for i in range(nblocks):
-            avail = min(i * bs, W)
-            if avail > 0:
-                hist[i, W - avail:] = raw[i * bs - avail: i * bs]
-            room = W - avail
-            take = min(dict_len, room)
-            if take > 0:
-                hist[i, room - take: room] = window[dict_len - take:]
-        valid = np.minimum(np.arange(nblocks, dtype=np.int64) * bs
-                           + dict_len, W)
-        return np.concatenate([hist, work], axis=1), lens, nblocks, W, \
-            W - valid
-
-
-def _compress_split(raw, bs, window, linked, device) -> _EncodeState:
-    """Queue one frame's chain builds on *device*."""
-    with span("encode.rows"):
-        work, lens, nblocks, hist_len, hist_start = _history_rows(
-            raw, bs, window, linked)
-    chains = encode_blocks_chain(work, lens, bs, hist_len, hist_start,
-                                 device=device)
-    return _EncodeState(raw, work, lens, nblocks, bs, hist_len, chains)
-
-
-def _split_encode_fetch(state: _EncodeState, chains_np: np.ndarray) -> list:
-    """Serialize every block from its fetched chain (native, on the host
-    pool). Returns the blocks' streams."""
-    raw, work, lens, nblocks, bs, hist_len = state[:6]
-    comps = [None] * nblocks
-    with span("encode.serialize"):
-        if hist_len == 0:
-            # One padded copy of the frame: row b's work view is
-            # raw_pad[b*bs : b*bs+src_len+8]; the 8 slack bytes only need
-            # to be readable (the extension clamps at its match limit).
-            raw_pad = np.zeros(nblocks * bs + 8, np.uint8)
-            raw_pad[: len(raw)] = np.asarray(raw, np.uint8)
-
-            def _serialize_one(b):
-                src_len = int(lens[b])
-                comps[b] = chain_select_serialize(
-                    raw_pad[b * bs: b * bs + src_len + 8], 0, src_len,
-                    chains_np[b])
-        else:
-            def _serialize_one(b):
-                src_len = int(lens[b])
-                wk = np.zeros(hist_len + src_len + 8, np.uint8)
-                wk[:hist_len] = work[b, :hist_len]
-                wk[hist_len: hist_len + src_len] = \
-                    raw[b * bs: b * bs + src_len]
-                comps[b] = chain_select_serialize(wk, hist_len, src_len,
-                                                  chains_np[b])
-
-        # The native serializer releases the GIL: blocks run in parallel.
-        for f in [host_pool().submit(_serialize_one, b)
-                  for b in range(nblocks)]:
-            f.result()
-    return comps
-
-
 def _queue_compress(raw, config: FrameConfig, window, dict_id, device
                     ) -> tuple[list, Callable]:
     """Queue one frame's split-engine chain builds on *device*. Returns
@@ -405,27 +301,19 @@ def _queue_compress(raw, config: FrameConfig, window, dict_id, device
     fetched) returns the frame."""
     bs = config.resolved_block_size
     n = len(raw)
-    if bs > SPLIT_MAX_BS:
-        big = queue_frame_big(raw, bs, window, not config.block_independence,
-                              device)
-
-        def finish(fetched):
-            comps = splice_blocks_big(big, fetched[0])
-            # An empty payload makes a frame with no block (bigblock.py
-            # _finish_frame_big).
-            nblocks = len(comps) if n else 0
-            lens = [min(bs, n - b * bs) for b in range(nblocks)]
-            return _assemble_frame_host(raw, comps, lens, nblocks, bs,
-                                        config, dict_id)
-        return [big.chains], finish
-
-    st = _compress_split(raw, bs, window, not config.block_independence,
-                         device)
+    state = queue_frame_big(raw, bs, window, not config.block_independence,
+                            device)
 
     def finish(fetched):
-        return _assemble_frame_host(raw, _split_encode_fetch(st, fetched[0]),
-                                    st.lens, st.nblocks, bs, config, dict_id)
-    return [st.chains], finish
+        comps = splice_blocks_big(state, fetched[0])
+        # An empty payload makes a frame with one stored empty block at
+        # 64 KB (the JAX small-block split) and with no block above it
+        # (bigblock.py _finish_frame_big).
+        nblocks = len(comps) if n or bs == SEG else 0
+        lens = [min(bs, n - b * bs) for b in range(nblocks)]
+        return _assemble_frame_host(raw, comps, lens, nblocks, bs, config,
+                                    dict_id)
+    return [state.chains], finish
 
 
 def _encode_route(engine: str, config: FrameConfig, dictionary,
@@ -487,7 +375,8 @@ def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
                          ) -> tuple[list, Callable]:
     """Queue one frame's row encode on *device*: the greedy kernel
     (``engine="pallas"``, rows without history), the hybrid walk or the
-    XLA encoder over ``_history_rows``' rows, then host assembly
+    XLA encoder over ``bigblock.history_rows``' whole-block rows, then
+    host assembly
     (``_host_assemble``) or, with ``assemble="device"``, ``assemble_blocks``
     as JAX does (``device.py:196-215, 778-788``: linked frames always,
     independent ones without block checksums and with a payload). With
@@ -498,21 +387,16 @@ def _queue_compress_rows(raw, config: FrameConfig, window, dict_id, device,
     bs = config.resolved_block_size
     linked = not config.block_independence
     with span("encode.rows"):
-        if encoder == "pallas":
-            work, lens, nblocks = _blocks_to_batch(raw, bs)
-            hist_len, hist_start = 0, 0
-        else:
-            work, lens, nblocks, hist_len, hist_start = _history_rows(
-                raw, bs, window, linked)
+        _, work, lens, hist_len, hist_start = history_rows(raw, bs, bs,
+                                                           window, linked)
+    nblocks = len(lens)
     finish = _finish_rows(raw, lens, nblocks, bs, config, dict_id)
     if shards is not None:
         tensors = []
         for dev, rows in shard_spans(nblocks, shards):
-            hs = hist_start[rows] if isinstance(hist_start, np.ndarray) \
-                else hist_start
             tensors += _encode_row_batch(encoder, work[rows], lens[rows], bs,
-                                         hist_len, hs, use_fingerprints,
-                                         dev)[2:]
+                                         hist_len, hist_start[rows],
+                                         use_fingerprints, dev)[2:]
         return tensors, finish
     d_work, d_lens, out, out_lens = _encode_row_batch(
         encoder, work, lens, bs, hist_len, hist_start, use_fingerprints,

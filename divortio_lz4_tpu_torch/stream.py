@@ -18,11 +18,12 @@ The host parts are copies; their frames and "LZ4: ..." errors are JAX's.
   holding at least ``_DEVICE_MIN_BLOCKS`` full blocks (<= 64 KB, a
   multiple of 1 KB, no dictionary) encodes them as one burst on *device*:
   the split engine's chain builder over every block's row, independent or
-  ``[history | payload]`` for linked frames (``parallel/device.py
-  :_compress_split``), one fetch, then the host serializer per block on the
-  host pool. The decoder gathers at least ``_DEVICE_MIN_BLOCKS`` complete
-  buffered blocks of an independent frame without a dictionary (blocks
-  <= 256 KB) into one burst: ``ops/stream_decode.decode_wire_blocks2``
+  ``[history | payload]`` for linked frames (``parallel/bigblock.py
+  :queue_frame_big``), one fetch, then the host serializer per block on the
+  host pool (``splice_blocks_big``). The decoder gathers at least
+  ``_DEVICE_MIN_BLOCKS`` complete buffered blocks of an independent frame
+  without a dictionary (blocks <= 256 KB) into one burst:
+  ``ops/stream_decode.decode_wire_blocks2``
   (compact kernel up to 64 KB, wire kernel at 256 KB), one fetch. A burst
   holds at most ``_BURST_BYTES`` of plaintext. Every other block (the
   carried remainder, linked frames of the decoder, dictionaries, bigger
@@ -72,7 +73,8 @@ from .constants import (
 from .ops.block_ref import new_hash_table
 from .ops.hybrid_encode import hybrid_max_bs
 from .ops.stream_decode import decode_wire_blocks2
-from .parallel.device import WIRE_MAX_BS, _compress_split, _split_encode_fetch
+from .parallel.bigblock import queue_frame_big, splice_blocks_big
+from .parallel.device import WIRE_MAX_BS
 from .utils import ensure_buffer, read_u32le, write_u32le
 from .xxh import XXHash32, xxhash32
 
@@ -253,9 +255,9 @@ class LZ4Encoder:
         window = None
         if linked and self._history:
             window = np.frombuffer(self._history, np.uint8)
-        st = _compress_split(payload, self._block_size, window, linked,
+        st = queue_frame_big(payload, self._block_size, window, linked,
                              self._dev)
-        comps = _split_encode_fetch(st, st.chains.cpu().numpy())
+        comps = splice_blocks_big(st, st.chains.cpu().numpy())
         bs = self._block_size
         outputs = [self._frame_block_bytes(comps[i],
                                            payload[i * bs: (i + 1) * bs])

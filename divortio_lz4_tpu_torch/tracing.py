@@ -13,12 +13,13 @@ call is a range inside it. Spans open only on the thread that called the
 entry point: a fan-out to the host pool is one span around its submit and
 join, since ranges opened on pool threads are not recorded.
 
-The span ``encode.history``, inside ``encode.rows``, is the build of the
-history columns of a linked frame's rows in
-``parallel/device._history_rows`` (a loop over the blocks, each row's
-history being the 64 KB of plaintext before it). It opens only where a
-frame of linked blocks up to 64 KB builds its rows, never for independent
-blocks or for the big-block segment rows.
+The span ``encode.history``, inside ``encode.rows``, is the fill of the
+history columns of a linked frame's whole-block rows in
+``parallel/bigblock.history_rows`` (each row's history being the 64 KB of
+plaintext before it, one slice copy for the frame). It opens only where
+the rows are the blocks of a linked frame (the split route's 64 KB
+blocks, the row encoders' linked frames), never for independent blocks
+or for the segment rows of bigger blocks.
 
 Counters (``count``) add while a profiler is recording, under the root
 that is open on the calling thread: ``h2d_bytes`` (every upload of

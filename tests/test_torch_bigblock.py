@@ -4,10 +4,11 @@ JAX package on the CPU.
 Frames from divortio_lz4_tpu_torch.compress_frame must be byte-identical to
 the JAX device_compress_frame(engine="split") at every block size (64 KB,
 256 KB, 1 MB, 4 MB) in both block modes, with a dictionary, block
-checksums and a content checksum, and decode back on the port. The big-
-block segment stage is compared piece by piece first: segment rows, the
-meta serializer's (stream, meta) per segment, then the spliced frames,
-including the splicer's end-of-segment rules. Tolerance: exact everywhere.
+checksums and a content checksum, and decode back on the port. The
+segment stage (a 64 KB block is one segment) is compared piece by piece
+first: segment rows, the meta serializer's (stream, meta) per segment,
+then the spliced frames, including the splicer's end-of-segment rules.
+Tolerance: exact everywhere.
 """
 
 import numpy as np
@@ -68,35 +69,64 @@ def test_default_config_matches_jax():
         data, engine="split")).tobytes()
 
 
+@pytest.mark.parametrize("with_dict", [False, True],
+                         ids=["no_dict", "dict"])
 @pytest.mark.parametrize("linked", [False, True],
                          ids=["independent", "linked"])
-def test_segment_stage_matches_jax(linked):
-    """Segment rows, chains and the meta serializer's per-segment (stream,
-    meta) equal the JAX stage's before any splicing."""
+@pytest.mark.parametrize("bs", [65536, 262144], ids=["64k", "256k"])
+def test_segment_stage_matches_jax(bs, linked, with_dict):
+    """Rows, chains and the meta serializer's per-row (stream, meta) equal
+    the JAX segment stage's before any splicing, at 64 KB (one segment a
+    block) and 256 KB. Where the port leaves out the history columns
+    (independent 64 KB blocks without a dictionary), JAX's rows have none
+    valid and their payload columns are the port's rows."""
     data, d = _data_and_dict(n=200_000, seed=23)
-    window = d[-65536:]
-    rows = pt_bb._segment_rows(data, 262144, window, linked)
-    ref = jax_bb._segment_rows(data, 262144, window, linked)
-    for a, b in zip(rows[:3], ref[:3]):
-        np.testing.assert_array_equal(a, b)
-    assert rows[3] == ref[3]
-    work, lens, hist_start, _ = ref
-    chains = pt_split.encode_blocks_chain(work, lens, pt_bb.SEG, 65536,
-                                          hist_start, device="cpu").numpy()
+    window = d[-65536:] if with_dict else None
+    rows = pt_bb.history_rows(data, bs, pt_bb.SEG, window, linked)
+    ref_work, ref_lens, ref_start, ref_blocks = jax_bb._segment_rows(
+        data, bs, window, linked)
+    np.testing.assert_array_equal(rows.lens, ref_lens)
+    if rows.hist_len == 0:
+        assert bs == 65536 and not linked and window is None
+        np.testing.assert_array_equal(rows.work, ref_work[:, 65536:])
+        np.testing.assert_array_equal(ref_start, 65536)
+        np.testing.assert_array_equal(rows.hist_start, 0)
+    else:
+        np.testing.assert_array_equal(rows.work, ref_work)
+        np.testing.assert_array_equal(rows.hist_start, ref_start)
+    per = bs // pt_bb.SEG
+    assert [list(range(k, min(k + per, len(rows.lens))))
+            for k in range(0, len(rows.lens), per)] == ref_blocks
+    chains = pt_split.encode_blocks_chain(
+        rows.work, rows.lens, pt_bb.SEG, rows.hist_len, rows.hist_start,
+        device="cpu").numpy()
     np.testing.assert_array_equal(chains, np.asarray(
-        jax_hybrid.build_dist_chains(work.astype(np.int32), lens, 65536,
-                                     hist_start)))
-    outs, out_lens, metas = pt_bb._encode_segments(work, lens, chains)
-    want = jax_bb._encode_segments(work, lens, hist_start)
-    np.testing.assert_array_equal(out_lens, want[1])
-    np.testing.assert_array_equal(metas, want[2])
-    np.testing.assert_array_equal(outs, want[0])
-    wk = np.zeros(work.shape[1] + 8, np.uint8)
-    wk[:-8] = work[1]
-    s, meta = pt_split.chain_select_serialize_meta(wk, 65536, int(lens[1]),
-                                                   chains[1])
+        jax_hybrid.build_dist_chains(rows.work.astype(np.int32), rows.lens,
+                                     rows.hist_len, rows.hist_start)))
+    streams, metas = pt_bb.serialize_rows(rows, chains)
+    if rows.hist_len:
+        outs, out_lens, want_metas = jax_bb._encode_segments(
+            ref_work, ref_lens, ref_start)
+        want = [outs[k, :n] for k, n in enumerate(out_lens)]
+    else:
+        # JAX's segment stage always builds its chains over 64 KB of
+        # history; rows without one are its small-block split rows, which
+        # its meta serializer encodes from its chains (== the port's)
+        got = [jax_split.chain_select_serialize_meta(
+            np.append(rows.work[k], np.zeros(8, np.uint8)), 0,
+            int(rows.lens[k]), chains[k]) for k in range(len(rows.lens))]
+        want = [w for w, _ in got]
+        want_metas = np.stack([m for _, m in got])
+    assert len(streams) == len(want)
+    for got_s, want_s in zip(streams, want):
+        np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(metas, want_metas)
+    wk = np.zeros(rows.work.shape[1] + 8, np.uint8)
+    wk[:-8] = rows.work[1]
+    s, meta = pt_split.chain_select_serialize_meta(
+        wk, rows.hist_len, int(rows.lens[1]), chains[1])
     s_ref, meta_ref = jax_split.chain_select_serialize_meta(
-        wk, 65536, int(lens[1]), chains[1])
+        wk, rows.hist_len, int(rows.lens[1]), chains[1])
     np.testing.assert_array_equal(s, s_ref)
     np.testing.assert_array_equal(meta, meta_ref)
 

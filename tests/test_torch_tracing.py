@@ -24,7 +24,7 @@ from divortio_lz4_tpu_torch.ops.split_decode import (build_flat_records,
                                                      parse_wire_raw)
 from divortio_lz4_tpu_torch.ops.wave_decode import (build_chain_arrays,
                                                     plan_blocks)
-from divortio_lz4_tpu_torch.parallel.bigblock import _segment_rows
+from divortio_lz4_tpu_torch.parallel.bigblock import SEG, history_rows
 from divortio_lz4_tpu_torch.parallel.device import parse_block_index
 from lz4bench.metrics import _trace
 
@@ -178,7 +178,7 @@ def _expected_bytes(name, data, frame):
     n = len(data)
     header, blocks, _ = parse_block_index(frame, True)
     if name == "libdefault4m":
-        _, lens, _, _ = _segment_rows(data, 4194304, None, True)
+        lens = history_rows(data, 4194304, SEG, None, True).lens
         rows, hist = len(lens), 65536
     elif name == "pylz4default":
         rows, hist = -(-n // 65536), 65536
