@@ -13,7 +13,7 @@ which must be exact.
 
 1. Device and build: the card's name and power limit (nvidia-smi), the
    nvcc builds of csrc/{compact_decode,chain_decode,greedy_encode,
-   token_decode,split_decode}.cu and the g++ build of
+   token_decode,split_decode,chain_build}.cu and the g++ build of
    csrc/host_kernels.cpp from this checkout (all started together), and
    ptxas's registers and spills for every entry point.
 2. Kernel vs plain: the CUDA compact-decode kernel against its plain
@@ -113,9 +113,13 @@ which must be exact.
    decompress_frame with engine="xla" exact (MB/s median of 3, size
    against the engine="pallas" frame, the loops' rounds, calls), the frame
    decoded exactly by "split" and "pallas", the split and pallas frames
-   decoded exactly by "xla" and "hybrid"; encode_blocks_batch,
-   decode_blocks_batch and the split engine's chain builder timed on the
-   frame's 1024 rows with CUDA events, each with its byte bound. The
+   decoded exactly by "xla" and "hybrid"; encode_blocks_batch and
+   decode_blocks_batch timed on the frame's 1024 rows with CUDA events,
+   each with its byte bound. The split engine's chain builder
+   (csrc/chain_build.cu, one launch a 128-row chunk of the split frame's
+   compress) against its torch ops on the card, element for element, on
+   the corpus's 1024 rows of 64 KB, independent (N = 2**16) and linked
+   (64 KB of history, N = 2**17), each timed both ways with its bound. The
    64 MiB FrameConfig() frame encoded and decoded once with engine="xla"
    (exact, MB/s, decoded exactly by "split"). The routes JAX sends to the
    XLA engine, each a round trip on an 8 MiB slice: engine="pallas" with
@@ -221,7 +225,7 @@ MIB = 1 << 20
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM HBM3, 3.35 TB/s (NVIDIA data sheet)
 HELPER_BLOCKS = 32          # phase 17's blocks through the one-block helpers
 CUDA_SOURCES = ("compact_decode", "chain_decode", "greedy_encode",
-                "token_decode", "split_decode")
+                "token_decode", "split_decode", "chain_build")
 
 
 def _card() -> str:
@@ -1351,12 +1355,58 @@ def _phase10(torch, pt, dev, corpus, frame, dict_frame, d, seed, tag):
     return res
 
 
+def _chain_build_rows(torch, dev, corpus, linked: bool) -> dict:
+    """The chain builder on the 64 MiB corpus's 64 KB rows as the split
+    engine builds them (independent: N = 2**16; linked: 64 KB of history,
+    N = 2**17), in the main path's chunks: the kernel (written in place,
+    as encode_blocks_chain does) == the torch ops on the card element for
+    element, then both timed with CUDA events (kernel mean of 3, torch
+    ops 1). The bound: payload in, a u16 distance a position out."""
+    from divortio_lz4_tpu_torch.ops.hybrid_encode import (
+        CHAIN_CHUNK_ROWS, build_dist_chains, build_dist_chains_plain)
+    from divortio_lz4_tpu_torch.parallel.bigblock import history_rows
+
+    rows = history_rows(corpus, 65536, 65536, None, linked)
+    work = torch.from_numpy(rows.work).to(dev)
+    lens = torch.from_numpy(rows.lens.astype(np.int64)).to(dev)
+    hs = torch.from_numpy(rows.hist_start.astype(np.int64)).to(dev)
+    hl, nb = rows.hist_len, work.shape[0]
+    out = torch.empty((nb, work.shape[1] - hl), dtype=torch.uint16,
+                      device=dev)
+    chunks = [slice(i, i + CHAIN_CHUNK_ROWS)
+              for i in range(0, nb, CHAIN_CHUNK_ROWS)]
+
+    def kernel():
+        for c in chunks:
+            build_dist_chains(work[c], lens[c], hl, hs[c], out=out[c])
+
+    def plain():
+        return [build_dist_chains_plain(work[c], lens[c], hl, hs[c])
+                for c in chunks]
+
+    kernel()
+    err = 0
+    for c, want in zip(chunks, plain()):
+        diff = ((out[c].view(torch.int16).int() & 0xFFFF)
+                - (want.view(torch.int16).int() & 0xFFFF)).abs()
+        err = max(err, int(diff.max()))
+        bad = (diff != 0).any(1)
+        if bool(bad.any()):
+            rows_bad = (bad.nonzero().flatten() + c.start).tolist()
+            raise AssertionError(f"chain_build (linked={linked}): kernel != "
+                                 f"plain (rows {rows_bad[:8]})")
+    n = len(corpus)
+    return {"rows": nb, "N": work.shape[1], "chunks": len(chunks),
+            "ms": _cuda_ms(torch, kernel, 3),
+            "plain_ms": _cuda_ms(torch, plain, 1),
+            "bound_ms": _bound_ms(n, 2 * n), "max_abs_err": err}
+
+
 def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
     """engine="xla" on the card (the module docstring's phase 11)."""
     from divortio_lz4_tpu_torch import FrameConfig
     from divortio_lz4_tpu_torch.ops import decode_xla, encode_xla
-    from divortio_lz4_tpu_torch.ops import split_encode
-    from divortio_lz4_tpu_torch.ops.hybrid_encode import CHAIN_CHUNK_ROWS
+    from divortio_lz4_tpu_torch.ops import hybrid_encode, split_encode
     from divortio_lz4_tpu_torch.parallel import device as pdev
     from divortio_lz4_tpu_torch.parallel.bigblock import history_rows
 
@@ -1412,8 +1462,13 @@ def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
         _other_engine_exact(pt, frame, corpus, dev, engine,
                             what="64 MiB xla frame")
     calls["build_dist_chains"] = 0
+    launched = hybrid_encode.build_dist_chains.launches
     split_frame = pt.compress_frame(corpus, cfg, device=dev)
     main_calls["build_dist_chains"] = calls["build_dist_chains"]
+    launched = hybrid_encode.build_dist_chains.launches - launched
+    if launched != main_calls["build_dist_chains"]:
+        raise AssertionError(f"chain_build launched {launched} times in "
+                             f"{main_calls['build_dist_chains']} calls")
     for made_by, f in (("split", split_frame), ("pallas", ref_frame)):
         for engine in ("xla", "hybrid"):
             _other_engine_exact(pt, f, corpus, dev, engine,
@@ -1449,10 +1504,8 @@ def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
     dec_ms = _cuda_ms(torch, lambda: decode_xla.decode_blocks_batch(
         comp, clens, hist, 65536), 3)
     dec, dlens = decode_xla.decode_blocks_batch(comp, clens, hist, 65536)
-    chain_ms = _cuda_ms(torch, lambda: [
-        split_encode.build_dist_chains(d_work[i: i + CHAIN_CHUNK_ROWS],
-                                       d_lens[i: i + CHAIN_CHUNK_ROWS], 0, 0)
-        for i in range(0, nb, CHAIN_CHUNK_ROWS)], 3)
+    chain = {name: _chain_build_rows(torch, dev, corpus, linked)
+             for name, linked in (("independent", False), ("linked", True))}
     comp_bytes = int(clens.sum())
     stored_bytes = sum(size for _, size, st in blocks if st)
     res["rows"] = {
@@ -1469,19 +1522,24 @@ def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
             # compressed bytes in, decoded bytes out (stored blocks skip)
             "bound_ms": _bound_ms(comp_bytes, n - stored_bytes)},
         "build_dist_chains": {
-            "ms": chain_ms,
             "calls_on_path": main_calls["build_dist_chains"],
-            # payload in, a u16 distance per position out
-            "bound_ms": _bound_ms(n, 2 * n)}}
+            "launches": launched, **chain}}
     if int(dlens.sum()) != n - stored_bytes:
         raise AssertionError("decode_blocks_batch lost bytes")
     print(f"phase 11: on the frame's {nb} rows (CUDA events, mean of 3): "
           f"encode_blocks_batch {enc_ms:.3f} ms (bound "
           f"{res['rows']['encode_blocks_batch']['bound_ms']:.4f}), "
           f"decode_blocks_batch {dec_ms:.3f} ms (bound "
-          f"{res['rows']['decode_blocks_batch']['bound_ms']:.4f}), the split "
-          f"engine's chain builder {chain_ms:.3f} ms (bound "
-          f"{res['rows']['build_dist_chains']['bound_ms']:.4f}) {tag}")
+          f"{res['rows']['decode_blocks_batch']['bound_ms']:.4f}) {tag}")
+    for name, c in chain.items():
+        print(f"phase 11: chain_build on the frame's {c['rows']} {name} "
+              f"rows (N = {c['N']}, {c['chunks']} chunks of "
+              f"{hybrid_encode.CHAIN_CHUNK_ROWS}): kernel == plain element "
+              f"for element; kernel {c['ms']:.3f} ms (mean of 3), plain "
+              f"torch ops {c['plain_ms']:.1f} ms "
+              f"(x{c['plain_ms'] / c['ms']:.1f}), bound "
+              f"{c['bound_ms']:.4f} ms; {launched} launches "
+              f"in the split frame's compress {tag}")
     del d_work, comp, rows, dec
 
     # the default frame: 4 MB linked blocks
@@ -1559,6 +1617,7 @@ def _phase11(torch, pt, dev, corpus, ref_frame, card, tag):
               f"CPU frame ({len(on_gpu)} B) {tag}")
     print(f"phase 11: peak device memory {res['peak_mib']:.0f} MiB {tag}")
     print(json.dumps({"xla_engine": res}))
+    return res["rows"]["build_dist_chains"]
 
 
 def _stream_pass(pt, data, cfg, dev, chunk):
@@ -1783,7 +1842,8 @@ def _kernel_fns() -> dict:
     counts its launches in ``.launches``."""
     from divortio_lz4_tpu_torch.ops.compact_decode import decode_blocks_compact
     from divortio_lz4_tpu_torch.ops.greedy_encode import encode_blocks_pallas
-    from divortio_lz4_tpu_torch.ops.hybrid_encode import hybrid_walk
+    from divortio_lz4_tpu_torch.ops.hybrid_encode import (build_dist_chains,
+                                                          hybrid_walk)
     from divortio_lz4_tpu_torch.ops.split_decode import decode_blocks_split
     from divortio_lz4_tpu_torch.ops.token_decode import (decode_blocks_pallas,
                                                          decode_token_chains)
@@ -1796,7 +1856,8 @@ def _kernel_fns() -> dict:
             "token_decode": decode_blocks_pallas,
             "token_decode_linked": decode_token_chains,
             "hybrid_encode": hybrid_walk,
-            "split_decode": decode_blocks_split}
+            "split_decode": decode_blocks_split,
+            "chain_build": build_dist_chains}
 
 
 def _stream_frame(pt, data, cfg, dev, chunk: int) -> bytes:
@@ -2505,7 +2566,7 @@ def main() -> int:
                                    args.seed, tag)
     split = _phase10(torch, pt, dev, corpus, hybrid_frame, dict_frame, d,
                      args.seed, tag)
-    _phase11(torch, pt, dev, corpus, ref_frame, card, tag)
+    chain_build = _phase11(torch, pt, dev, corpus, ref_frame, card, tag)
     stream_launches = _phase12(torch, pt, dev, corpus, args.seed, tag)
     sharded_launches = _phase13(torch, pt, dev, corpus, tag)
     cli_launches = _phase14(torch, pt, dev, corpus, tag)
@@ -2555,6 +2616,17 @@ def main() -> int:
         dict(name="split_decode", source="split_decode.cu",
              replaces="divortio_lz4_tpu/ops/pallas_split_decode.py:91",
              **split),
+        dict(name="chain_build", source="chain_build.cu",
+             replaces="none: the port's own (divortio_lz4_tpu/ops/"
+                      "hybrid_encode.py build_dist_chains is XLA)",
+             launches=chain_build["launches"],
+             max_abs_err=max(c["max_abs_err"] for c in (
+                 chain_build["independent"], chain_build["linked"])),
+             ms=chain_build["independent"]["ms"],
+             plain_ms=chain_build["independent"]["plain_ms"],
+             bound_ms=chain_build["independent"]["bound_ms"],
+             inputs="the 64 MiB corpus's 1024 independent 64 KB rows; "
+                    "linked rows in the xla_engine line"),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

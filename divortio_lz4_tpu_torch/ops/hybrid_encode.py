@@ -4,13 +4,16 @@ Port of ``divortio_lz4_tpu/ops/hybrid_encode.py``.
 
 - The candidate search (``_cand_row``, ``_dist_row``, ``_chain_row``,
   ``build_dist_chains``, ``build_chains``) and ``ops/encode_xla.py:_pows``.
-  In the JAX package this phase is plain XLA, not Pallas, so its port is
-  torch ops: one sort per block row gives every payload position the
-  distance of its best previous same-word occurrence. The split encode
-  ships it as u16 distances (``build_dist_chains``, 0 = none) to the host
-  serializer (``lz4t_chain_serialize16``); the hybrid walk takes the packed
-  form ``(next matchable position << 16) | dist`` (``build_chains``). Both
-  equal the JAX builders element for element.
+  In the JAX package this phase is plain XLA, not Pallas: one sort per
+  block row gives every payload position the distance of its best
+  previous same-word occurrence. The split encode ships it as u16
+  distances (``build_dist_chains``, 0 = none) to the host serializer
+  (``lz4t_chain_serialize16``); the hybrid walk takes the packed form
+  ``(next matchable position << 16) | dist`` (``build_chains``). Both
+  equal the JAX builders element for element. Their port is torch ops
+  (``build_dist_chains_plain``), except the split encode's hashed layout
+  on the card: the port's own kernels, ``csrc/chain_build.cu`` (two
+  kernels around one u32 segmented sort).
 - The sequence walk, TPU kernel ``_make_kernel`` (``:366``, run by
   ``encode_blocks_hybrid``, ``pl.pallas_call`` at ``:604``): per sequence,
   jump to the next matchable position, extend the match, emit the
@@ -44,14 +47,15 @@ from .._build import load_library
 from .._device import resolve_device
 from ..constants import (LAST_LITERALS, MF_LIMIT, MIN_MATCH, WINDOW_SIZE,
                          block_bound)
+from ..tracing import count
 from .emit import EXT_STEP, ext_count, extend, serialize
 
 _M32 = 0xFFFFFFFF
 
-# Rows per chain-builder call. Each call holds ~20 int64 [rows, N]
+# Rows per chain-builder call. The torch ops hold ~20 int64 [rows, N]
 # temporaries alive at once: at 128 rows of 64 KB that is 64 MB each
 # (128 MB with a 64 KB history prefix), ~1.3-2.6 GB at peak, whatever the
-# frame's size.
+# frame's size; the CUDA builder three u32 [rows, N] arrays (96-192 MB).
 CHAIN_CHUNK_ROWS = 128
 
 # encode_xla.py:56-58 — odd polynomial base and its inverse mod 2**32.
@@ -226,17 +230,106 @@ def _dist_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,
 
 
 def build_dist_chains(work: torch.Tensor, lens: torch.Tensor, hist_len: int,
-                      hist_start, hashed: bool = True) -> torch.Tensor:
+                      hist_start, hashed: bool = True,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """u16 dist-only chains: int[nb, N] work -> uint16[nb, N - hist_len].
 
     Same contract as the JAX ``build_dist_chains``: *hist_start* is an int
     or an int[nb] (first valid history index per row); ``hashed=True`` is
-    the production hashed-bucket layout, ``hashed=False`` exact words."""
+    the production hashed-bucket layout, ``hashed=False`` exact words.
+    The hashed layout on a CUDA tensor runs the CUDA builder
+    (``csrc/chain_build.cu``: the rows as u8, N <= 2**17) or raises; on the
+    CPU, and for exact words, the torch ops (``build_dist_chains_plain``).
+    *out*, a contiguous uint16[nb, N - hist_len] on work's device, takes
+    the result (the kernel writes it in place). On CUDA nothing
+    synchronises; ``launches`` counts the kernel's calls."""
+    if hashed and work.device.type == "cuda":
+        return _dist_chains_cuda(work, lens, hist_len, hist_start, out)
+    chains = build_dist_chains_plain(work, lens, hist_len, hist_start,
+                                     hashed)
+    return chains if out is None else out.copy_(chains)
+
+
+build_dist_chains.launches = 0
+
+
+def build_dist_chains_plain(work: torch.Tensor, lens: torch.Tensor,
+                            hist_len: int, hist_start,
+                            hashed: bool = True) -> torch.Tensor:
+    """build_dist_chains as int64 torch ops, on any device."""
     work = work.to(torch.int64)
     lens = lens.to(device=work.device, dtype=torch.int64)
     hs = torch.as_tensor(hist_start, dtype=torch.int64, device=work.device)
     hs = hs.expand(work.shape[0]).contiguous()
     return _dist_rows(work, lens, hist_len, hs, hashed)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_lib():
+    lib = load_library("chain_build")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.lz4t_chain_sort_bytes.argtypes = [i64, i64, p]
+    lib.lz4t_chain_sort_bytes.restype = ctypes.c_int
+    lib.lz4t_chain_build.argtypes = [p, i64, i64, i64, p, p, p, p, p, p, p,
+                                     i64, p, p]
+    lib.lz4t_chain_build.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _sort_bytes(nb: int, n: int) -> int:
+    """The cub scratch bytes of the segmented sort of nb rows of n keys."""
+    size = ctypes.c_int64(0)
+    rc = _chain_lib().lz4t_chain_sort_bytes(nb, n, ctypes.byref(size))
+    if rc != 0:
+        raise RuntimeError(f"chain_build sort query failed: cudaError {rc}")
+    return size.value
+
+
+_INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _dist_chains_cuda(work, lens, hist_len, hist_start, out):
+    if work.dtype not in _INT_DTYPES or work.dim() != 2 \
+            or not work.is_contiguous():
+        raise ValueError("work must be a contiguous int[nb, N] on the card")
+    work = work.to(torch.uint8)      # the values are bytes by contract
+    nb, n = work.shape
+    if not 0 <= hist_len <= n or n > (1 << 17) or nb * n >= (1 << 31):
+        raise ValueError(f"rows of {n} bytes with hist_len={hist_len} "
+                         f"(nb={nb}): the kernel takes hist_len <= N <= "
+                         "2**17 and nb * N < 2**31")
+    dev = work.device
+    lens = lens.to(device=dev, dtype=torch.int64).contiguous()
+    hs = torch.as_tensor(hist_start, dtype=torch.int64, device=dev)
+    hs = hs.expand(nb).contiguous()
+    if tuple(lens.shape) != (nb,):
+        raise ValueError(f"lens must be an int[{nb}]")
+    if out is None:
+        out = torch.empty((nb, n - hist_len), dtype=torch.uint16, device=dev)
+    elif (out.dtype != torch.uint16 or tuple(out.shape) != (nb, n - hist_len)
+          or not out.is_contiguous() or out.device != dev):
+        raise ValueError(f"out must be a contiguous uint16[{nb}, "
+                         f"{n - hist_len}] on {dev}")
+    if nb == 0:
+        return out
+    keys, keys_alt, pay = torch.empty((3, nb * n), dtype=torch.int32,
+                                      device=dev)
+    offsets = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+    temp = torch.empty(max(_sort_bytes(nb, n), 1), dtype=torch.uint8,
+                       device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _chain_lib().lz4t_chain_build(
+            work.data_ptr(), nb, n, hist_len, lens.data_ptr(), hs.data_ptr(),
+            keys.data_ptr(), keys_alt.data_ptr(), pay.data_ptr(),
+            offsets.data_ptr(), temp.data_ptr(), temp.numel(),
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"chain_build kernel launch failed: cudaError {rc}")
+    build_dist_chains.launches += 1
+    count("chain_kernel_rows", nb)
+    return out
 
 
 def _chain_rows(work: torch.Tensor, src_len: torch.Tensor, hist_len: int,

@@ -4,7 +4,8 @@ Port of ``divortio_lz4_tpu/ops/split_encode.py`` (``encode_blocks_chain``,
 ``chain_select_serialize``, ``chain_select_serialize_meta`` and
 ``encode_block_split_host``; ``hybrid_max_bs`` is re-exported as there).
 The device builds one u16 match distance per payload position
-(``build_dist_chains``); the port's host library
+(``build_dist_chains``: on the card the CUDA builder, written straight
+into the chain rows); the port's host library
 (``csrc/host_kernels.cpp``, a copy of the JAX package's native functions)
 greedy-selects, extends and serializes each block from its chain. The
 packed i32 chain of ``build_chains`` (``next_pos << 16 | dist``) takes its
@@ -60,8 +61,8 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
             w = put(work[rows], device)
             ln = put(np.asarray(lens[rows], np.int64), device)
             h = put(hs[rows], device)
-            chains[rows] = build_dist_chains(w, ln, hist_len, h,
-                                             hashed=not exact)
+            build_dist_chains(w, ln, hist_len, h, hashed=not exact,
+                              out=chains[rows])
     return chains
 
 

@@ -33,7 +33,10 @@ blocks of every frame that ``parallel/device._stage_frame`` stages, on
 every route) and ``chain_records`` (the records whose words the native
 pass of ``ops/wave_decode.build_chain_arrays`` packed, inside
 ``decode.records``; only a linked frame or one of blocks over 256 KB
-takes that route).
+takes that route) and ``chain_kernel_rows`` (the rows that the CUDA chain
+builder, ``csrc/chain_build.cu``, built in ``ops/hybrid_encode.
+build_dist_chains``, inside ``encode.chains``: an operator's check that
+the main path went through the kernel; no metric reads it).
 To trace the port, run its calls under ``torch.profiler.profile``, then
 read the ranges from the profile and the totals from ``counters()``.
 """

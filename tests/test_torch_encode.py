@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import REC, cuda  # noqa: F401  (cuda: fixture)
+from _torch_port import (REC, cuda,  # noqa: F401  (cuda: fixture)
+                         mixed_payload)
 from divortio_lz4_tpu.ops import encode_xla as jax_encode_xla
 from divortio_lz4_tpu.ops import hybrid_encode as jax_hybrid
 from divortio_lz4_tpu.ops import split_encode as jax_split
@@ -20,17 +21,17 @@ from divortio_lz4_tpu_torch.ops import split_encode as pt_split
 BS = 8192
 
 
-def _rows(seed=1):
+def _rows(seed=1, bs=BS):
     """Three ragged rows: JSON-like records, a 4-letter alphabet (dense,
     long runs of candidates), random bytes (no matches); zero-padded past
     their lengths as the frame path pads them."""
     rng = np.random.default_rng(seed)
-    rows = [np.frombuffer((REC % 7 * (BS // len(REC % 7) + 1))[:BS],
+    rows = [np.frombuffer((REC % 7 * (bs // len(REC % 7) + 1))[:bs],
                           np.uint8),
-            rng.integers(0, 4, BS).astype(np.uint8),
-            rng.integers(0, 256, BS).astype(np.uint8)]
+            rng.integers(0, 4, bs).astype(np.uint8),
+            rng.integers(0, 256, bs).astype(np.uint8)]
     work = np.stack(rows).astype(np.int32)
-    lens = np.array([BS, 5000, BS - 13], np.int32)
+    lens = np.array([bs, 5000, bs - 13], np.int32)
     for i, n in enumerate(lens):
         work[i, n:] = 0
     return work, lens
@@ -63,9 +64,11 @@ def test_build_dist_chains_matches_jax(hashed, history):
     assert (got != 0).sum() > 1000  # the rows do carry matches
 
 
-def test_build_dist_chains_per_row_hist_start():
-    """hist_start given per row (the linked-frame form) matches too."""
-    work, lens = _rows(seed=4)
+@pytest.mark.parametrize("bs", [BS, 65536], ids=["8k", "64k"])
+def test_build_dist_chains_per_row_hist_start(bs):
+    """hist_start given per row (the linked-frame form) matches too; at
+    64 KB rows N = 2**17, the linked cells' width, with a short row."""
+    work, lens = _rows(seed=4, bs=bs)
     work, _ = _with_history(work, 65536, 6000)
     hs = np.array([65536 - 6000, 65536 - 100, 65536], np.int32)
     want = np.asarray(jax_hybrid.build_dist_chains(work, lens, 65536, hs))
@@ -128,20 +131,89 @@ def test_encode_blocks_chain_rejects_bad_width():
                                      device="cpu")
 
 
-@pytest.mark.cuda
-def test_build_dist_chains_cuda_matches_cpu(cuda):
-    for hist in (False, True):
+# The card cases: the 8 KB int32 rows of _rows, alone (N = 8192, ibits 13)
+# or after 64 KB of history (N = 73728, ibits 17), hashed and exact; two
+# widths that are no multiple of 256 and end in a partial 4096-position
+# tile (1000 or 65499 bytes of history before 8 KB: N = 9192, 73691); and
+# u8 rows at the shapes the benchmark cells run: 64 KB rows, alone
+# (N = 2**16) or after 64 KB of history (N = 2**17).
+SMALL_CARD_CASES = [f"8k-{h}-{k}" for h in ("nohist", "hist")
+                    for k in ("hashed", "exact")] + ["odd-9192", "odd-73691"]
+BIG_CARD_CASES = ["indep64k", "linked64k", "short_last", "zeros", "random",
+                  "dictionary", "exact64k"]
+
+
+def _card_case(name):
+    """(work, lens, hist_len, hist_start, hashed) of a card case."""
+    if name.startswith("8k-"):
+        _, hist, kind = name.split("-")
         work, lens = _rows(seed=6)
         hist_len, hs = 0, 0
-        if hist:
+        if hist == "hist":
             hist_len = 65536
             work, hs = _with_history(work, hist_len, 3000)
-        for hashed in (True, False):
-            want = pt_hybrid.build_dist_chains(
-                torch.from_numpy(work), torch.from_numpy(lens), hist_len,
-                hs, hashed=hashed)
-            got = pt_hybrid.build_dist_chains(
-                torch.from_numpy(work).to(cuda),
-                torch.from_numpy(lens).to(cuda), hist_len, hs,
-                hashed=hashed)
-            assert torch.equal(got.cpu(), want)
+        return work, lens, hist_len, hs, kind == "hashed"
+    if name.startswith("odd-"):
+        work, lens = _rows(seed=7)
+        hist_len = int(name[4:]) - BS
+        work, hs = _with_history(work, hist_len, min(hist_len, 3000))
+        return work, lens, hist_len, hs, True
+    B = 65536
+    rng = np.random.default_rng(11)
+    text = mixed_payload(8 * B, 11)
+    if name in ("indep64k", "short_last", "zeros", "random"):
+        work = text[: 4 * B].reshape(4, B).copy()
+        lens = np.full(4, B, np.int64)
+        if name == "short_last":
+            lens[3] = 1000
+            work[3, 1000:] = 0
+        elif name == "zeros":
+            work[1] = 0                  # runs: every position interior
+        elif name == "random":
+            work[2] = rng.integers(0, 256, B)
+        return work, lens, 0, 0, True
+    # linked 64 KB rows: each row's history is the 64 KB before it
+    hs = np.zeros(4, np.int64)
+    if name == "dictionary":
+        work = np.zeros((4, 2 * B), np.uint8)
+        work[:, B - 32768: B] = text[:32768]          # 32 KB dictionary
+        work[:, B:] = text[B: 5 * B].reshape(4, B)
+        hs[:] = B - 32768
+    else:
+        work = np.stack([text[i * B: (i + 2) * B] for i in range(4)])
+        hs[0] = B                                     # the frame's start
+    lens = np.array([B, B, B, B - 7], np.int64)
+    work[3, B + lens[3]:] = 0
+    return work, lens, B, hs, name != "exact64k"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SMALL_CARD_CASES + BIG_CARD_CASES)
+def test_build_dist_chains_cuda_matches_cpu(cuda, name, monkeypatch):
+    """The CUDA builder (hashed) or the torch ops on the card (exact) equal
+    the JAX builder element for element (and so do the port's torch ops
+    on the CPU), through build_dist_chains and through
+    encode_blocks_chain's chunks, one kernel launch a chunk."""
+    work, lens, hist_len, hs, hashed = _card_case(name)
+    want = np.asarray(jax_hybrid.build_dist_chains(
+        work.astype(np.int32), lens.astype(np.int32), hist_len,
+        np.asarray(hs, np.int32), hashed=hashed))
+    assert (want != 0).sum() > 1000  # the rows do carry matches
+    plain = pt_hybrid.build_dist_chains(
+        torch.from_numpy(work), torch.from_numpy(lens), hist_len,
+        torch.from_numpy(np.asarray(hs)), hashed=hashed)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    got = pt_hybrid.build_dist_chains(
+        torch.from_numpy(work).to(cuda), torch.from_numpy(lens).to(cuda),
+        hist_len, hs, hashed=hashed)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    monkeypatch.setattr(pt_split, "CHAIN_CHUNK_ROWS", 2)
+    before = pt_hybrid.build_dist_chains.launches
+    got = pt_split.encode_blocks_chain(
+        work, lens, work.shape[1] - hist_len, hist_len, hs, device=cuda,
+        exact=not hashed)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    chunks = -(-work.shape[0] // 2)
+    assert pt_hybrid.build_dist_chains.launches - before == (
+        chunks if hashed else 0)

@@ -18,7 +18,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import divortio_lz4_tpu_torch as pt
-from _torch_port import mixed_payload, one_torch_thread  # noqa: F401
+from _torch_port import cuda, mixed_payload, one_torch_thread  # noqa: F401
 from divortio_lz4_tpu_torch import tracing
 from divortio_lz4_tpu_torch.ops.split_decode import (build_flat_records,
                                                      parse_wire_raw)
@@ -219,3 +219,21 @@ def test_copy_counters_are_the_arrays_bytes(name, one_torch_thread):
             assert got[root][key] == n
     assert got["decompress_frames"]["d2h_bytes"] % 8 == 0
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DEPLOYMENTS)
+def test_chain_kernel_rows_count_the_cards_rows(name, cuda):
+    """On the card every chain row goes through the CUDA builder, which
+    counts it (``chain_kernel_rows``; on the CPU the counter is absent,
+    test_copy_counters_are_the_arrays_bytes)."""
+    data = mixed_payload(SIZE + 3, 7)
+    cfg = _config(name)
+    rows = -(-len(data) // 65536)        # 64 KB rows on every route
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        frame = pt.compress_frame(data, cfg, device=cuda)
+    got = tracing.counters()
+    tracing.reset()
+    assert got["compress_frames"]["chain_kernel_rows"] == rows
+    out = pt.decompress_frame(frame, device=cuda)
+    np.testing.assert_array_equal(out, data)
