@@ -25,7 +25,8 @@ every block parses whole (``parse_records_wire``) and every frame the host
 scanner accepts decodes here. ``build_chain_arrays`` packs a frame's
 record words in one native pass (``lz4t_pack_chain_records`` of
 ``csrc/host_kernels.cpp``); ``stage_chains`` adds their number to the
-counter ``chain_records`` while a profiler records.
+counter ``chain_records`` while a profiler records, and the number of
+chains staged to ``decode_chains``.
 
 The kernels do not walk a chain in order: they resolve its matches in
 parallel (``ops/resolve.py``; ``record_spans`` and
@@ -185,6 +186,8 @@ def stage_chains(buf: np.ndarray, blocks, header, window,
         arrays = build_chain_arrays(buf, blocks, header["independent"],
                                     out_lens, recs_l)
         count("chain_records", len(arrays[2]))
+        # one chain a linked frame, one a block of an independent frame
+        count("decode_chains", len(arrays[3]) - 1)
     seed = None
     if window is not None and len(window):
         seed = np.zeros(W, np.uint8)

@@ -437,4 +437,6 @@ def splice_blocks_big(state: EncodeState, chains_np: np.ndarray) -> list:
                 raw, bstart, min(bstart + bs, len(raw)), streams[seg],
                 metas[seg], rows.lens[seg],
                 src_floor=0 if linked else bstart))
+        # the blocks spliced, a short last block included
+        count("splice_blocks", len(comps))
     return comps

@@ -30,10 +30,16 @@ extend matches over segment boundaries, ``parallel/bigblock._ext_len``),
 uploads carry, ``hist_len`` bytes a row, ``ops/split_encode.
 encode_blocks_chain``; a part of ``h2d_bytes``), ``decode_blocks`` (the
 blocks of every frame that ``parallel/device._stage_frame`` stages, on
-every route) and ``chain_records`` (the records whose words the native
+every route), ``chain_records`` (the records whose words the native
 pass of ``ops/wave_decode.build_chain_arrays`` packed, inside
 ``decode.records``; only a linked frame or one of blocks over 256 KB
-takes that route) and ``chain_kernel_rows`` (the rows that the CUDA chain
+takes that route), ``decode_chains`` (the chains that
+``ops/wave_decode.stage_chains`` staged on that route, beside
+``chain_records``: one a linked frame, one a block of an independent
+frame), ``splice_blocks`` (the blocks that ``parallel/bigblock.
+splice_blocks_big`` spliced from their segments, inside
+``encode.splice``: every block of a frame over 64 KB blocks, a short last
+block included) and ``chain_kernel_rows`` (the rows that the CUDA chain
 builder, ``csrc/chain_build.cu``, built in ``ops/hybrid_encode.
 build_dist_chains``, inside ``encode.chains``: an operator's check that
 the main path went through the kernel; no metric reads it).

@@ -6,7 +6,8 @@ benchmark deployments' frame settings (lz4bench/configs) opens every span
 of its route as a ``lz4t.*`` range, nested under its root and all on the
 calling thread, and the counters equal the bytes of the arrays uploaded
 and fetched, worked out from their shapes, the history columns among the
-uploads, and the blocks of the frame decoded.
+uploads, the blocks of the frame decoded and spliced, and the chains
+staged.
 """
 
 import json
@@ -85,14 +86,16 @@ TREE = {
 
 # The counters of each root: the copies, the history columns among the
 # compress uploads, the blocks decoded, on the big-block compress the
-# plaintext that the splice's boundary extension compared, and on the
-# chain route (linked frames) the records whose words it packed.
+# plaintext that the splice's boundary extension compared and the blocks
+# spliced, and on the chain route (linked frames) the records whose words
+# it packed and the chains it staged.
 ENCODE = {"h2d_bytes", "d2h_bytes", "hist_h2d_bytes"}
 DECODE = {"h2d_bytes", "d2h_bytes", "decode_blocks"}
-CHAIN = DECODE | {"chain_records"}
+CHAIN = DECODE | {"chain_records", "decode_chains"}
 COUNTERS = {
     "cli64k": {"compress_frames": ENCODE, "decompress_frames": DECODE},
-    "libdefault4m": {"compress_frames": ENCODE | {"splice_cmp_bytes"},
+    "libdefault4m": {"compress_frames": ENCODE | {"splice_cmp_bytes",
+                                                  "splice_blocks"},
                      "decompress_frames": CHAIN},
     "pylz4default": {"compress_frames": ENCODE,
                      "decompress_frames": CHAIN}}
@@ -188,6 +191,10 @@ def _expected_bytes(name, data, frame):
     # history starts as i64; chains u16[rows, 64 KB]
     up_c = rows * (hist + 65536) + 2 * 8 * rows
     down_c = _padded(rows * 65536 * 2)
+    encode = {"h2d_bytes": up_c, "d2h_bytes": down_c,
+              "hist_h2d_bytes": rows * hist}
+    if name == "libdefault4m":
+        encode["splice_blocks"] = len(blocks)
     decode = {"decode_blocks": len(blocks)}
     if name == "cli64k":
         entries = [(frame[o: o + s], st) for o, s, st in blocks]
@@ -199,9 +206,9 @@ def _expected_bytes(name, data, frame):
         arrays = build_chain_arrays(frame, blocks, False, out_lens, recs_l)
         up_d = sum(a.nbytes for a in arrays)
         decode["chain_records"] = int(arrays[3][-1])
+        decode["decode_chains"] = 1         # a linked frame is one chain
     down_d = _padded(-(-n // 65536) * 65536 if name == "cli64k" else n)
-    return {"compress_frames": {"h2d_bytes": up_c, "d2h_bytes": down_c,
-                                "hist_h2d_bytes": rows * hist},
+    return {"compress_frames": encode,
             "decompress_frames": {"h2d_bytes": up_d, "d2h_bytes": down_d,
                                   **decode}}
 
