@@ -21,6 +21,9 @@
 // The port's own, with no counterpart there:
 //   lz4t_pack_chain_records  the chain decode's record words
 //                            (ops/wave_decode.py build_chain_arrays)
+//   lz4t_compact_parse, lz4t_compact_pack  the compact decode's staging of
+//                            a batch of blocks on threads
+//                            (ops/split_decode.py stage_compact_batch)
 // Built with g++ at first use by divortio_lz4_tpu_torch/_build.py.
 
 #include <cstdint>
@@ -453,6 +456,142 @@ void lz4t_pack_chain_records(const uint32_t* recs, const int64_t* counts,
       words += 3;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Compact batch staging
+// ---------------------------------------------------------------------------
+
+// The compact decode's host staging of a batch of independent blocks in
+// two calls. lz4t_compact_parse runs on nthreads threads, each over a
+// contiguous range of blocks (blocks[b] = data offset in buf, size,
+// stored flag). Per block it copies the wire bytes into row b of
+// wire[nb, wire_cap] and zeroes the rest of the row, parses the block
+// with lz4t_parse_records2 (a stored block: 128-byte literal slices) and
+// packs its records in place into the compact words
+//   w0 = src | ll<<16 | ml<<24,   w1 = min(dst, 0xFFFF) | offset<<16,
+// dst being the running sum of ll + ml within the block. It writes
+// out_lens[b] and rec_off[nb + 1], and returns the record count N with
+// the words held under *handle, or the error code of the lowest-indexed
+// bad block (nothing held; -7: out of memory). lz4t_compact_pack then
+// copies the words into words[N, 2] and frees the handle (words == NULL
+// only frees it).
+struct CompactStage {
+  int32_t nthreads;
+  std::vector<uint32_t*> recs;   // per thread: its blocks' words in order
+  std::vector<int64_t> n;        // per thread: its records
+  std::vector<int64_t> at;       // per thread: its first record's index
+};
+
+static void compact_free(CompactStage* st) {
+  for (uint32_t* r : st->recs) std::free(r);
+  delete st;
+}
+
+int64_t lz4t_compact_parse(const uint8_t* buf, const int64_t* blocks,
+                           int64_t nb, int64_t out_cap, int64_t dict_len,
+                           uint8_t* wire, int64_t wire_cap, int64_t* rec_off,
+                           int64_t* out_lens, int32_t nthreads,
+                           void** handle) {
+  *handle = nullptr;
+  if (nthreads > nb) nthreads = (int32_t)nb;
+  if (nthreads < 1) nthreads = 1;
+  CompactStage* st = new CompactStage();
+  st->nthreads = nthreads;
+  st->recs.assign(nthreads, nullptr);
+  st->n.assign(nthreads, 0);
+  st->at.assign(nthreads, 0);
+  std::vector<int64_t> errs(nthreads, 0);
+
+  auto worker = [&](int t) {
+    const int64_t b0 = nb * t / nthreads, b1 = nb * (t + 1) / nthreads;
+    int64_t cap = 0, used = 0;
+    uint32_t* recs = nullptr;
+    for (int64_t b = b0; b < b1; b++) {
+      const int64_t off = blocks[3 * b], size = blocks[3 * b + 1];
+      const bool stored = blocks[3 * b + 2] != 0;
+      uint8_t* row = wire + b * wire_cap;
+      std::memcpy(row, buf + off, (size_t)size);
+      std::memset(row + size, 0, (size_t)(wire_cap - size));
+      // parse_records2_native's record bound for this block
+      const int64_t need = stored ? (size + 127) / 128
+                                  : (size / 3 + 1) * 9 + out_cap / 128 + 8;
+      if (used + need > cap) {
+        int64_t grow = cap * 2 > used + need ? cap * 2 : used + need;
+        uint32_t* r = (uint32_t*)std::realloc(recs, (size_t)grow * 8);
+        if (!r) { errs[t] = -7; break; }
+        recs = r;
+        cap = grow;
+      }
+      uint32_t* w = recs + 2 * used;
+      int64_t nrec, out_len;
+      if (stored) {
+        nrec = need;
+        for (int64_t k = 0; k < nrec; k++) {
+          const int64_t take = size - 128 * k < 128 ? size - 128 * k : 128;
+          w[2 * k] = (uint32_t)(128 * k);
+          w[2 * k + 1] = 1u | ((uint32_t)take << 16);
+        }
+        out_len = size;
+      } else {
+        nrec = lz4t_parse_records2(buf + off, size, out_cap, w, need,
+                                   dict_len, &out_len);
+        if (nrec < 0) { errs[t] = nrec; break; }
+      }
+      int64_t dst = 0;
+      for (int64_t k = 0; k < nrec; k++) {
+        const uint32_t w1 = w[2 * k + 1];
+        const uint32_t ll = (w1 >> 16) & 0xFF, ml = w1 >> 24;
+        w[2 * k] |= (w1 >> 16) << 16;
+        w[2 * k + 1] = (uint32_t)(dst < 0xFFFF ? dst : 0xFFFF) | (w1 << 16);
+        dst += ll + ml;
+      }
+      rec_off[b + 1] = nrec;
+      out_lens[b] = out_len;
+      used += nrec;
+    }
+    st->recs[t] = recs;
+    st->n[t] = used;
+  };
+  std::vector<std::thread> threads;
+  for (int t = 1; t < nthreads; t++) threads.emplace_back(worker, t);
+  worker(0);
+  for (auto& th : threads) th.join();
+
+  // Threads own ascending block ranges and stop at their first bad block,
+  // so the first thread with an error holds the lowest bad block.
+  for (int t = 0; t < nthreads; t++) {
+    if (errs[t] < 0) {
+      compact_free(st);
+      return errs[t];
+    }
+  }
+  rec_off[0] = 0;
+  for (int64_t b = 0; b < nb; b++) rec_off[b + 1] += rec_off[b];
+  int64_t total = 0;
+  for (int t = 0; t < nthreads; t++) {
+    st->at[t] = total;
+    total += st->n[t];
+  }
+  *handle = st;
+  return total;
+}
+
+void lz4t_compact_pack(void* handle, uint32_t* words) {
+  CompactStage* st = (CompactStage*)handle;
+  if (st == nullptr) return;
+  if (words != nullptr) {
+    auto worker = [&](int t) {
+      if (st->n[t])
+        std::memcpy(words + 2 * st->at[t], st->recs[t],
+                    (size_t)st->n[t] * 8);
+    };
+    std::vector<std::thread> threads;
+    for (int t = 1; t < st->nthreads; t++) threads.emplace_back(worker, t);
+    worker(0);
+    for (auto& th : threads) th.join();
+  }
+  compact_free(st);
 }
 
 // ---------------------------------------------------------------------------

@@ -9,11 +9,13 @@ The wrappers and the error table are copies of
 ``decompress_frame_body_native``, ``xxh32_round4_native``,
 ``compress_block_native``, ``decompress_block_native``), with JAX's
 ``_nthreads`` rule (``LZ4T_THREADS``, default min(cores, 16));
-``pack_chain_records_native`` is the port's own (the chain decode's
-record words, ``ops/wave_decode.build_chain_arrays``). The
-library is built with g++ at its first use (``_build.py``), never at
-import. Every function validates its buffers in Python before passing
-pointers, and raises "LZ4: ..." ValueErrors on the C error codes.
+``pack_chain_records_native`` (the chain decode's record words,
+``ops/wave_decode.build_chain_arrays``) and ``parse_pack_compact_native``
+(the compact decode's staging, ``ops/split_decode.stage_compact_batch``)
+are the port's own. The library is built with g++ at its first use
+(``_build.py``), never at import. Every function validates its buffers
+in Python before passing pointers, and raises "LZ4: ..." ValueErrors on
+the C error codes.
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ def _lib() -> ctypes.CDLL:
                                         ctypes.POINTER(i64)]
     lib.lz4t_pack_chain_records.restype = None
     lib.lz4t_pack_chain_records.argtypes = [p, p, p, p, i64, p]
+    lib.lz4t_compact_parse.restype = i64
+    lib.lz4t_compact_parse.argtypes = [p, p, i64, i64, i64, p, i64, p, p,
+                                       i32, ctypes.POINTER(p)]
+    lib.lz4t_compact_pack.restype = None
+    lib.lz4t_compact_pack.argtypes = [p, p]
     lib.lz4t_chain_serialize.restype = i64
     lib.lz4t_chain_serialize.argtypes = [p, i64, i64, p, p]
     lib.lz4t_chain_serialize16.restype = i64
@@ -185,6 +192,45 @@ def pack_chain_records_native(recs: np.ndarray, counts, base, first):
     _lib().lz4t_pack_chain_records(_ptr(recs), _ptr(counts), _ptr(base),
                                    _ptr(first), nb, _ptr(words))
     return words
+
+
+def parse_pack_compact_native(buf: np.ndarray, blocks, out_cap: int,
+                              dict_len: int, wire_cap: int):
+    """The compact decode's staging of a batch of blocks in one threaded
+    native pass (see lz4t_compact_parse): *blocks* i64[nb, 3] holds each
+    block's (data offset in *buf*, size, stored flag). Returns (wire
+    u8[nb, wire_cap], rec_words i32[N, 2], rec_off i64[nb + 1], out_lens
+    i64[nb]): ``parse_wire_raw`` + ``build_flat_records``' arrays, on
+    ``_nthreads()`` threads. Raises the "LZ4: ..." ValueError of the
+    lowest-indexed malformed block."""
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    blocks = np.ascontiguousarray(blocks, dtype=np.int64).reshape(-1, 3)
+    nb = len(blocks)
+    offs, sizes = blocks[:, 0], blocks[:, 1]
+    if nb and (offs.min() < 0 or sizes.min() < 0
+               or (offs + sizes).max() > len(buf)
+               or sizes.max() > wire_cap):
+        raise ValueError("blocks must lie in buf and fit wire_cap")
+    wire = np.empty((nb, wire_cap), np.uint8)
+    rec_off = np.empty(nb + 1, np.int64)
+    out_lens = np.empty(nb, np.int64)
+    handle = ctypes.c_void_p()
+    lib = _lib()
+    n = int(lib.lz4t_compact_parse(
+        _ptr(buf), _ptr(blocks), nb, out_cap, dict_len, _ptr(wire),
+        wire_cap, _ptr(rec_off), _ptr(out_lens), _nthreads(),
+        ctypes.byref(handle)))
+    if n == -7:
+        raise MemoryError("no memory for the compact records")
+    if n < 0:
+        raise ValueError(_ERRORS.get(n, "LZ4: Malformed Input"))
+    words = None
+    try:
+        words = np.empty((n, 2), np.int32)
+    finally:
+        lib.lz4t_compact_pack(handle, None if words is None
+                              else _ptr(words))
+    return wire, words, rec_off, out_lens
 
 
 def _check_serialize(work, hist_len, src_len, chain, out,

@@ -6,7 +6,12 @@ Compact branch (``stored_wire_records``, ``parse_records_wire``,
 ``parse_wire_raw``, and the record packing of ``build_compact_batch``):
 the native host parser (``lz4t_parse_records2``) turns each block's LZ4
 sequences into records of at most 128 output bytes, ``(src, off | ll<<16
-| ml<<24)``. The device kernel (``compact_decode``) copies them. The TPU
+| ml<<24)``. The device kernel (``compact_decode``) copies them. A frame's
+batch (and a streaming burst) is staged by ``stage_compact_batch``: one
+threaded native pass (``lz4t_compact_parse`` / ``lz4t_compact_pack`` in
+``csrc/host_kernels.cpp``) copies the wire rows, parses every block and
+packs its words, with no per-block Python; ``parse_wire_raw`` +
+``build_flat_records`` are its reference, as the JAX staging is. The TPU
 staging padded each block's record stream to its interleave group's trip
 bound and planned ways, pairs and SMEM budgets around it. A GPU block walks
 its own records, so here the streams are simply concatenated (CSR form):
@@ -49,8 +54,9 @@ import torch
 from .._build import load_library
 from .._device import resolve_device
 from ..constants import WINDOW_SIZE
-from ..host import parse_records2_native, parse_records_native
-from ..tracing import put, span
+from ..host import (parse_pack_compact_native, parse_records2_native,
+                    parse_records_native)
+from ..tracing import count, put, span
 from .compact_decode import STATS
 from .record_groups import run_groups
 
@@ -89,11 +95,12 @@ def parse_records_wire(src: np.ndarray, out_cap: int, dict_len: int = 0):
 def parse_wire_raw(entries, block_size: int, window=None):
     """Parse a batch of (wire bytes, is_stored) entries. Returns
     (wire u8[nb, wire_cap], recs_l, counts i32[nb], out_lens i64[nb],
-    hist u8[nb, W] | None) — the tuple the JAX staging returns."""
+    hist u8[nb, W] | None) — the tuple the JAX staging returns. The
+    reference of ``stage_compact_batch``, which the compact route runs,
+    and the staging of the 256 KB route (``wire_decode.parse_wire_batch``)."""
     nb = len(entries)
-    hl = len(window) if window is not None and len(window) else 0
-    max_wire = max((len(c) for c, _ in entries), default=1)
-    wire_cap = _round_up(max_wire + SLACK, 1024)
+    hl = _dict_len(window)
+    wire_cap = _wire_cap(max((len(c) for c, _ in entries), default=1))
     with span("decode.parse"):
         wire = np.zeros((nb, wire_cap), np.uint8)
         counts = np.zeros(nb, np.int32)
@@ -108,11 +115,47 @@ def parse_wire_raw(entries, block_size: int, window=None):
             recs_l.append(r)
             counts[i] = len(r)
             out_lens[i] = ol
-        hist = None
-        if hl:
-            hist = np.zeros((nb, W), np.uint8)
-            hist[:, W - hl:] = window
+        hist = _hist_rows(nb, window)
     return wire, recs_l, counts, out_lens, hist
+
+
+def _dict_len(window) -> int:
+    return len(window) if window is not None and len(window) else 0
+
+
+def _wire_cap(max_wire: int) -> int:
+    return _round_up(max_wire + SLACK, 1024)
+
+
+def _hist_rows(nb: int, window):
+    """Each row's history: the window right-aligned in W bytes, or None."""
+    hl = _dict_len(window)
+    if not hl:
+        return None
+    hist = np.zeros((nb, W), np.uint8)
+    hist[:, W - hl:] = window
+    return hist
+
+
+def stage_compact_batch(buf: np.ndarray, blocks, block_size: int,
+                        window=None):
+    """Stage a batch of blocks for the compact decode: *blocks* is a
+    sequence of (data offset in *buf*, size, is_stored) rows. Returns
+    (wire u8[nb, wire_cap], rec_words i32[N, 2], rec_off i64[nb + 1],
+    out_lens i64[nb], hist u8[nb, W] | None), the arrays that
+    ``parse_wire_raw`` + ``build_flat_records`` give, from one threaded
+    native pass (``host.parse_pack_compact_native``) inside the span
+    ``decode.parse``; the counter ``compact_records`` adds N. Raises the
+    "LZ4: ..." ValueError of the lowest-indexed malformed block."""
+    with span("decode.parse"):
+        blocks = np.asarray(blocks, np.int64).reshape(-1, 3)
+        wire_cap = _wire_cap(int(blocks[:, 1].max(initial=1)))
+        wire, rec_words, rec_off, out_lens = parse_pack_compact_native(
+            buf, blocks, block_size, _dict_len(window), wire_cap)
+    with span("decode.records"):
+        count("compact_records", len(rec_words))
+        hist = _hist_rows(len(blocks), window)
+    return wire, rec_words, rec_off, out_lens, hist
 
 
 def build_flat_records(recs_l):
@@ -149,6 +192,15 @@ class CompactBatch(NamedTuple):
     out_lens: torch.Tensor             # i64[nb]
     hist: Optional[torch.Tensor]       # u8[nb, W] or None
 
+    @classmethod
+    def upload(cls, wire, rec_words, rec_off, out_lens, hist, device):
+        """The batch's numpy arrays (``stage_compact_batch``'s tuple) on
+        *device*, each through ``tracing.put``."""
+        return cls(put(wire, device), put(rec_words, device),
+                   put(rec_off, device),
+                   put(np.asarray(out_lens, np.int64), device),
+                   None if hist is None else put(hist, device))
+
 
 def from_reference_records(wire, recs_l, out_lens, hist, device
                            ) -> CompactBatch:
@@ -157,10 +209,8 @@ def from_reference_records(wire, recs_l, out_lens, hist, device
     both decoders can be fed identical parsed records."""
     with span("decode.records"):
         rec_words, rec_off = build_flat_records(recs_l)
-    return CompactBatch(put(wire, device), put(rec_words, device),
-                        put(rec_off, device),
-                        put(np.asarray(out_lens, np.int64), device),
-                        None if hist is None else put(hist, device))
+    return CompactBatch.upload(wire, rec_words, rec_off, out_lens, hist,
+                               device)
 
 
 # ---------------------------------------------------------------------------

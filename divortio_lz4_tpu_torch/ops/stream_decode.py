@@ -3,8 +3,9 @@ bytes in, their plaintexts out, one kernel launch and one fetch a burst.
 
 Port of ``divortio_lz4_tpu/ops/pallas_split_decode.py:1274-1303``
 (``decode_wire_blocks2``), on the routes the frame path takes for the same
-blocks: blocks and wires of at most 64 KB go through the host record parse
-and the compact kernel (``parallel/device.py:_decode_independent_split``),
+blocks: blocks and wires of at most 64 KB go through the native staging
+(``split_decode.stage_compact_batch``) and the compact kernel
+(``parallel/device.py:_decode_independent_split``),
 wider ones through the padded records and the wire kernel
 (``_decode_wide_split``). The TPU planning that JAX wraps around the same
 kernels (``dispatch_compact``, ``partition_by_plan``,
@@ -21,7 +22,7 @@ import torch
 
 from .._device import resolve_device
 from .compact_decode import decode_blocks_compact
-from .split_decode import from_reference_records, parse_wire_raw
+from .split_decode import CompactBatch, stage_compact_batch
 from .wire_decode import decode_blocks_wire, parse_wire_batch
 
 COMPACT_MAX = 65536     # widest block and wire the compact route takes
@@ -40,8 +41,14 @@ def decode_wire_blocks2(comps, block_size: int, *, device="cuda") -> list:
     entries = [(np.asarray(c, np.uint8), False) for c in comps]
     widest = max(len(c) for c, _ in entries)
     if block_size <= COMPACT_MAX and widest <= COMPACT_MAX:
-        wire, recs_l, _, out_lens, _ = parse_wire_raw(entries, block_size)
-        b = from_reference_records(wire, recs_l, out_lens, None, dev)
+        sizes = np.array([len(c) for c, _ in entries], np.int64)
+        blocks = np.zeros((len(sizes), 3), np.int64)
+        blocks[1:, 0] = np.cumsum(sizes)[:-1]
+        blocks[:, 1] = sizes
+        staged = stage_compact_batch(
+            np.concatenate([c for c, _ in entries]), blocks, block_size)
+        out_lens = staged[3]
+        b = CompactBatch.upload(*staged, dev)
         out = decode_blocks_compact(b.wire, b.rec_words, b.rec_off,
                                     b.out_lens, block_size)
     else:

@@ -100,7 +100,7 @@ from ..ops.encode_xla import encode_blocks_batch
 from ..ops.greedy_encode import encode_blocks_pallas
 from ..ops.hybrid_encode import encode_blocks_hybrid
 from ..ops.linked_xla import decode_linked_scan
-from ..ops.split_decode import from_reference_records, parse_wire_raw
+from ..ops.split_decode import CompactBatch, stage_compact_batch
 from ..ops.token_decode import (TokenChains, decode_blocks_pallas,
                                 decode_token_chains)
 from ..ops.wave_decode import block_pieces, decode_chains, stage_chains
@@ -550,11 +550,11 @@ class _DecodeState(NamedTuple):
 
 
 def _decode_independent_split(buf, blocks, bs, window, device):
-    """Parse every block's records on the host and queue the compact
-    decode kernel. Returns (device tensors, join)."""
-    entries = [(buf[off: off + size], stored) for off, size, stored in blocks]
-    wire, recs_l, _, out_lens, hist = parse_wire_raw(entries, bs, window)
-    batch = from_reference_records(wire, recs_l, out_lens, hist, device)
+    """Stage every block's records on the host (one native pass) and
+    queue the compact decode kernel. Returns (device tensors, join)."""
+    staged = stage_compact_batch(buf, blocks, bs, window)
+    out_lens = staged[3]
+    batch = CompactBatch.upload(*staged, device)
     with span("decode.kernel"):
         out = decode_blocks_compact(batch.wire, batch.rec_words,
                                     batch.rec_off, batch.out_lens, bs,

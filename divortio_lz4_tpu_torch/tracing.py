@@ -30,7 +30,11 @@ extend matches over segment boundaries, ``parallel/bigblock._ext_len``),
 uploads carry, ``hist_len`` bytes a row, ``ops/split_encode.
 encode_blocks_chain``; a part of ``h2d_bytes``), ``decode_blocks`` (the
 blocks of every frame that ``parallel/device._stage_frame`` stages, on
-every route), ``chain_records`` (the records whose words the native
+every route), ``compact_records`` (the records that the compact
+route's native staging, ``ops/split_decode.stage_compact_batch``, parsed and
+packed, inside ``decode.records``: every frame of independent blocks up
+to 64 KB on the split engine, and the streaming decoder's compact
+bursts), ``chain_records`` (the records whose words the native
 pass of ``ops/wave_decode.build_chain_arrays`` packed, inside
 ``decode.records``; only a linked frame or one of blocks over 256 KB
 takes that route), ``decode_chains`` (the chains that

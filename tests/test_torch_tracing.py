@@ -6,8 +6,8 @@ benchmark deployments' frame settings (lz4bench/configs) opens every span
 of its route as a ``lz4t.*`` range, nested under its root and all on the
 calling thread, and the counters equal the bytes of the arrays uploaded
 and fetched, worked out from their shapes, the history columns among the
-uploads, the blocks of the frame decoded and spliced, and the chains
-staged.
+uploads, the blocks of the frame decoded and spliced, the records the
+compact staging packed, and the chains staged.
 """
 
 import json
@@ -87,13 +87,15 @@ TREE = {
 # The counters of each root: the copies, the history columns among the
 # compress uploads, the blocks decoded, on the big-block compress the
 # plaintext that the splice's boundary extension compared and the blocks
-# spliced, and on the chain route (linked frames) the records whose words
-# it packed and the chains it staged.
+# spliced, on the compact route (64 KB independent blocks) the records its
+# native staging packed, and on the chain route (linked frames) the
+# records whose words it packed and the chains it staged.
 ENCODE = {"h2d_bytes", "d2h_bytes", "hist_h2d_bytes"}
 DECODE = {"h2d_bytes", "d2h_bytes", "decode_blocks"}
 CHAIN = DECODE | {"chain_records", "decode_chains"}
 COUNTERS = {
-    "cli64k": {"compress_frames": ENCODE, "decompress_frames": DECODE},
+    "cli64k": {"compress_frames": ENCODE,
+               "decompress_frames": DECODE | {"compact_records"}},
     "libdefault4m": {"compress_frames": ENCODE | {"splice_cmp_bytes",
                                                   "splice_blocks"},
                      "decompress_frames": CHAIN},
@@ -201,6 +203,7 @@ def _expected_bytes(name, data, frame):
         wire, recs_l, _, out_lens, _ = parse_wire_raw(entries, 65536, None)
         words, rec_off = build_flat_records(recs_l)
         up_d = wire.nbytes + words.nbytes + rec_off.nbytes + out_lens.nbytes
+        decode["compact_records"] = int(rec_off[-1])
     else:
         out_lens, recs_l = plan_blocks(frame, blocks, header, None)
         arrays = build_chain_arrays(frame, blocks, False, out_lens, recs_l)
@@ -225,6 +228,31 @@ def test_copy_counters_are_the_arrays_bytes(name, one_torch_thread):
         for key, n in want.items():
             assert got[root][key] == n
     assert got["decompress_frames"]["d2h_bytes"] % 8 == 0
+
+
+@pytest.mark.parametrize("name", ["cli64k", "pylz4default"])
+def test_compact_records_count_the_staged_records(name, one_torch_thread):
+    """``compact_records`` counts the records of a 64 KB independent
+    frame's native staging (rec_off[-1]) only while a profiler records; a
+    linked frame takes the chain route and counts none."""
+    data = mixed_payload(SIZE + 3, 11)
+    frame = pt.compress_frame(data, _config(name), device="cpu")
+    tracing.reset()
+    pt.decompress_frame(frame, device="cpu")
+    assert tracing.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = pt.decompress_frame(frame, device="cpu")
+    got = tracing.counters()["decompress_frames"]
+    tracing.reset()
+    np.testing.assert_array_equal(out, data)
+    if name == "pylz4default":
+        assert "compact_records" not in got
+        return
+    _, blocks, _ = parse_block_index(frame, True)
+    _, recs_l, _, _, _ = parse_wire_raw(
+        [(frame[o: o + s], st) for o, s, st in blocks], 65536, None)
+    assert got["compact_records"] == \
+        int(build_flat_records(recs_l)[1][-1]) > 0
 
 
 @pytest.mark.cuda
