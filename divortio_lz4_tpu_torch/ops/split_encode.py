@@ -25,7 +25,7 @@ from .._device import resolve_device
 from ..constants import block_bound
 from ..host import (chain_serialize16_meta_native, chain_serialize16_native,
                     chain_serialize_native)
-from ..tracing import count, put, span
+from ..tracing import count, put, recording, span
 from .hybrid_encode import CHAIN_CHUNK_ROWS, build_dist_chains, hybrid_max_bs
 
 __all__ = ["encode_blocks_chain", "chain_select_serialize",
@@ -58,6 +58,9 @@ def encode_blocks_chain(work: np.ndarray, lens: np.ndarray, block_size: int,
         for i in range(0, nb, CHAIN_CHUNK_ROWS):
             rows = slice(i, min(i + CHAIN_CHUNK_ROWS, nb))
             count("hist_h2d_bytes", hist_len * (rows.stop - rows.start))
+            if recording():
+                count("row_pad_bytes", block_size * (rows.stop - rows.start)
+                      - int(lens[rows].sum()))
             w = put(work[rows], device)
             ln = put(np.asarray(lens[rows], np.int64), device)
             h = put(hs[rows], device)

@@ -520,6 +520,7 @@ def compress_frames(datas, config: FrameConfig = DEFAULT_CONFIG,
                 queued.append(_queue_compress_rows(
                     raw, config, window, dict_id, dev, route,
                     use_fingerprints, assemble))
+        count("frames", len(queued))
         fetched = iter(_fetch_all([t for tensors, _ in queued
                                    for t in tensors]))
         return [finish([next(fetched) for _ in tensors])
@@ -894,6 +895,7 @@ def decompress_frames(frames, verify_checksum: bool = True,
         window, dict_id = _dict_window(dictionary)
         states = [_stage_frame(ensure_buffer(f), verify_checksum, window,
                                dict_id, dev, engine) for f in frames]
+        count("frames", len(states))
         fetched = iter(_fetch_all([t for s in states for t in s.tensors]))
         return [_finish_frame(s, [next(fetched) for _ in s.tensors],
                               verify_checksum) for s in states]

@@ -22,31 +22,37 @@ blocks, the row encoders' linked frames), never for independent blocks
 or for the segment rows of bigger blocks.
 
 Counters (``count``) add while a profiler is recording, under the root
-that is open on the calling thread: ``h2d_bytes`` (every upload of
-``put``), ``d2h_bytes`` (every fetch of ``_fetch_all``),
-``splice_cmp_bytes`` (the plaintext that the big-block splice compared to
-extend matches over segment boundaries, ``parallel/bigblock._ext_len``),
-``hist_h2d_bytes`` (the history columns that the chain builder's row
-uploads carry, ``hist_len`` bytes a row, ``ops/split_encode.
-encode_blocks_chain``; a part of ``h2d_bytes``), ``decode_blocks`` (the
-blocks of every frame that ``parallel/device._stage_frame`` stages, on
-every route), ``compact_records`` (the records that the compact
-route's native staging, ``ops/split_decode.stage_compact_batch``, parsed and
-packed, inside ``decode.records``: every frame of independent blocks up
-to 64 KB on the split engine, and the streaming decoder's compact
-bursts), ``chain_records`` (the records whose words the native
-pass of ``ops/wave_decode.build_chain_arrays`` packed, inside
-``decode.records``; only a linked frame or one of blocks over 256 KB
-takes that route), ``decode_chains`` (the chains that
-``ops/wave_decode.stage_chains`` staged on that route, beside
-``chain_records``: one a linked frame, one a block of an independent
-frame), ``splice_blocks`` (the blocks that ``parallel/bigblock.
-splice_blocks_big`` spliced from their segments, inside
-``encode.splice``: every block of a frame over 64 KB blocks, a short last
-block included) and ``chain_kernel_rows`` (the rows that the CUDA chain
-builder, ``csrc/chain_build.cu``, built in ``ops/hybrid_encode.
-build_dist_chains``, inside ``encode.chains``: an operator's check that
-the main path went through the kernel; no metric reads it).
+that is open on the calling thread: ``frames`` (the frames of every call,
+counted in the roots on every route: the payloads of a compress, the
+frames of a decompress), ``h2d_bytes`` (every upload of ``put``),
+``d2h_bytes`` (every fetch of ``_fetch_all``), ``splice_cmp_bytes`` (the
+plaintext that the big-block splice compared to extend matches over
+segment boundaries, ``parallel/bigblock._ext_len``), ``hist_h2d_bytes``
+(the history columns that the chain builder's row uploads carry,
+``hist_len`` bytes a row, ``ops/split_encode.encode_blocks_chain``; a part
+of ``h2d_bytes``), ``row_pad_bytes`` (the payload-less columns of the same
+uploads, each row's payload width, ``block_size``, less its length:
+columns that the chain builder uploads, sorts, picks over and sends back
+with no plaintext in them; a frame shorter than a 64 KB segment pads its
+one row to 64 KB, and full rows add 0), ``decode_blocks`` (the blocks of
+every frame that ``parallel/device._stage_frame`` stages, on every route),
+``compact_records`` (the records that the compact route's native staging,
+``ops/split_decode.stage_compact_batch``, parsed and packed, inside
+``decode.records``: every frame of independent blocks up to 64 KB on the
+split engine, and the streaming decoder's compact bursts),
+``chain_records`` (the records whose words the native pass of
+``ops/wave_decode.build_chain_arrays`` packed, inside ``decode.records``;
+only a linked frame or one of blocks over 256 KB takes that route),
+``decode_chains`` (the chains that ``ops/wave_decode.stage_chains`` staged
+on that route, beside ``chain_records``: one a linked frame, one a block
+of an independent frame), ``splice_blocks`` (the blocks that
+``parallel/bigblock.splice_blocks_big`` spliced from their segments,
+inside ``encode.splice``: every block of a frame over 64 KB blocks, a
+short last block included) and ``chain_kernel_rows`` (the rows that the
+CUDA chain builder, ``csrc/chain_build.cu``, built in
+``ops/hybrid_encode.build_dist_chains``, inside ``encode.chains``: an
+operator's check that the main path went through the kernel; no metric
+reads it).
 To trace the port, run its calls under ``torch.profiler.profile``, then
 read the ranges from the profile and the totals from ``counters()``.
 """
@@ -98,6 +104,12 @@ def span(name: str):
     if not _profiling():
         return _NULL
     return _Range(name)
+
+
+def recording() -> bool:
+    """Whether a profiler records: spans open and counters add. A counter
+    whose value takes work to find checks it first."""
+    return _profiling()
 
 
 def count(name: str, n: int) -> None:

@@ -1,13 +1,14 @@
 """The port's spans and copy counters (divortio_lz4_tpu_torch/tracing.py).
 
 With no profiler recording, a span never reaches ``record_function`` and
-nothing is counted. Under ``torch.profiler`` a CPU round trip in the two
+nothing is counted. Under ``torch.profiler`` a CPU round trip in the
 benchmark deployments' frame settings (lz4bench/configs) opens every span
 of its route as a ``lz4t.*`` range, nested under its root and all on the
-calling thread, and the counters equal the bytes of the arrays uploaded
-and fetched, worked out from their shapes, the history columns among the
-uploads, the blocks of the frame decoded and spliced, the records the
-compact staging packed, and the chains staged.
+calling thread, and the counters equal the frames of each call, the bytes
+of the arrays uploaded and fetched, worked out from their shapes, the
+history columns and the row padding among the uploads, the blocks of the
+frame decoded and spliced, the records the compact staging packed, and
+the chains staged.
 """
 
 import json
@@ -31,7 +32,7 @@ from lz4bench.metrics import _trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 100_000
-DEPLOYMENTS = ("cli64k", "libdefault4m", "pylz4default")
+DEPLOYMENTS = ("cli64k", "libdefault4m", "pylz4default", "kafka-lz4")
 
 # Each span of the route with the span it opens under.
 TREE = {
@@ -51,6 +52,21 @@ TREE = {
                        "frame.fetch": "decompress_frames",
                        "frame.join": "decompress_frames",
                        "frame.xxh32": "decompress_frames"}},
+    # cli64k's route without the content checksum
+    "kafka-lz4": {
+        "compress": {"encode.rows": "compress_frames",
+                     "encode.chains": "compress_frames",
+                     "frame.put": "encode.chains",
+                     "frame.fetch": "compress_frames",
+                     "encode.serialize": "compress_frames",
+                     "frame.assemble": "compress_frames"},
+        "decompress": {"frame.index": "decompress_frames",
+                       "decode.parse": "decompress_frames",
+                       "decode.records": "decompress_frames",
+                       "frame.put": "decompress_frames",
+                       "decode.kernel": "decompress_frames",
+                       "frame.fetch": "decompress_frames",
+                       "frame.join": "decompress_frames"}},
     "libdefault4m": {
         "compress": {"encode.rows": "compress_frames",
                      "encode.chains": "compress_frames",
@@ -84,14 +100,16 @@ TREE = {
 }
 
 
-# The counters of each root: the copies, the history columns among the
-# compress uploads, the blocks decoded, on the big-block compress the
-# plaintext that the splice's boundary extension compared and the blocks
-# spliced, on the compact route (64 KB independent blocks) the records its
-# native staging packed, and on the chain route (linked frames) the
-# records whose words it packed and the chains it staged.
-ENCODE = {"h2d_bytes", "d2h_bytes", "hist_h2d_bytes"}
-DECODE = {"h2d_bytes", "d2h_bytes", "decode_blocks"}
+# The counters of each root: the frames, the copies, the history columns
+# and the row padding among the compress uploads, the blocks decoded, on
+# the big-block compress the plaintext that the splice's boundary
+# extension compared and the blocks spliced, on the compact route (64 KB
+# independent blocks) the records its native staging packed, and on the
+# chain route (linked frames) the records whose words it packed and the
+# chains it staged.
+ENCODE = {"frames", "h2d_bytes", "d2h_bytes", "hist_h2d_bytes",
+          "row_pad_bytes"}
+DECODE = {"frames", "h2d_bytes", "d2h_bytes", "decode_blocks"}
 CHAIN = DECODE | {"chain_records", "decode_chains"}
 COUNTERS = {
     "cli64k": {"compress_frames": ENCODE,
@@ -100,7 +118,9 @@ COUNTERS = {
                                                   "splice_blocks"},
                      "decompress_frames": CHAIN},
     "pylz4default": {"compress_frames": ENCODE,
-                     "decompress_frames": CHAIN}}
+                     "decompress_frames": CHAIN},
+    "kafka-lz4": {"compress_frames": ENCODE,
+                  "decompress_frames": DECODE | {"compact_records"}}}
 
 
 def _config(name):
@@ -182,6 +202,7 @@ def _expected_bytes(name, data, frame):
     route uploads and fetches and from the frame's blocks."""
     n = len(data)
     header, blocks, _ = parse_block_index(frame, True)
+    compact = name in ("cli64k", "kafka-lz4")
     if name == "libdefault4m":
         lens = history_rows(data, 4194304, SEG, None, True).lens
         rows, hist = len(lens), 65536
@@ -193,12 +214,12 @@ def _expected_bytes(name, data, frame):
     # history starts as i64; chains u16[rows, 64 KB]
     up_c = rows * (hist + 65536) + 2 * 8 * rows
     down_c = _padded(rows * 65536 * 2)
-    encode = {"h2d_bytes": up_c, "d2h_bytes": down_c,
-              "hist_h2d_bytes": rows * hist}
+    encode = {"frames": 1, "h2d_bytes": up_c, "d2h_bytes": down_c,
+              "hist_h2d_bytes": rows * hist, "row_pad_bytes": rows * 65536 - n}
     if name == "libdefault4m":
         encode["splice_blocks"] = len(blocks)
-    decode = {"decode_blocks": len(blocks)}
-    if name == "cli64k":
+    decode = {"frames": 1, "decode_blocks": len(blocks)}
+    if compact:
         entries = [(frame[o: o + s], st) for o, s, st in blocks]
         wire, recs_l, _, out_lens, _ = parse_wire_raw(entries, 65536, None)
         words, rec_off = build_flat_records(recs_l)
@@ -210,7 +231,7 @@ def _expected_bytes(name, data, frame):
         up_d = sum(a.nbytes for a in arrays)
         decode["chain_records"] = int(arrays[3][-1])
         decode["decode_chains"] = 1         # a linked frame is one chain
-    down_d = _padded(-(-n // 65536) * 65536 if name == "cli64k" else n)
+    down_d = _padded(-(-n // 65536) * 65536 if compact else n)
     return {"compress_frames": encode,
             "decompress_frames": {"h2d_bytes": up_d, "d2h_bytes": down_d,
                                   **decode}}
@@ -253,6 +274,46 @@ def test_compact_records_count_the_staged_records(name, one_torch_thread):
         [(frame[o: o + s], st) for o, s, st in blocks], 65536, None)
     assert got["compact_records"] == \
         int(build_flat_records(recs_l)[1][-1]) > 0
+
+
+# (encode route, payload sizes, the compress call's row padding: one 64
+# KB row a payload up to 64 KB, an empty payload one empty row; None: the
+# host frame encoder builds no rows)
+@pytest.mark.parametrize("route,sizes,pad", [
+    ("split", [16384], 65536 - 16384),
+    ("split", [65536], 0),
+    ("split", [16384, 1, 0], (65536 - 16384) + (65536 - 1) + 65536),
+    ("host", [16384, 1, 0], None)])
+def test_frames_and_row_pad_count_each_call(route, sizes, pad,
+                                            one_torch_thread):
+    """``frames`` counts one a payload and one a frame in the roots, on the
+    split and on the host encode route; ``row_pad_bytes`` counts each
+    row's 64 KB less its payload, 0 for whole 64 KB blocks. Neither counts
+    without a profiler."""
+    if route == "split":
+        cfg, engine = _config("kafka-lz4"), "split"
+    else:       # linked blocks with block checksums: the host encoder
+        cfg = pt.FrameConfig(block_size=65536, block_independence=False,
+                             block_checksums=True)
+        engine = "pallas"
+    datas = [mixed_payload(n, 13) for n in sizes]
+
+    def round_trip():
+        frames = pt.compress_frames(datas, cfg, engine=engine, device="cpu")
+        outs = pt.decompress_frames(frames, device="cpu")
+        for out, data in zip(outs, datas):
+            np.testing.assert_array_equal(out, data)
+
+    tracing.reset()
+    round_trip()
+    assert tracing.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        round_trip()
+    got = tracing.counters()
+    tracing.reset()
+    assert got["compress_frames"]["frames"] == len(sizes)
+    assert got["decompress_frames"]["frames"] == len(sizes)
+    assert got["compress_frames"].get("row_pad_bytes") == pad
 
 
 @pytest.mark.cuda
